@@ -8,7 +8,11 @@ Run from the root of a checkout on a machine with one CUDA device.  It
 1. builds both CUDA kernels from ``dwavehmc_tpu_torch/csrc`` with nvcc;
 2. checks each kernel against its plain PyTorch version on the card, at the
    shapes of the main path and at unaligned ones (K1 max abs error ≤ 1e-6,
-   K2 rtol ≤ 1e-4), and times kernel and plain version with CUDA events;
+   K2 rtol ≤ 1e-4), and times kernel and plain version with CUDA events (the
+   kernel from the replay of a CUDA graph of 20 calls, so that the number is
+   device time and not the host's launch rate); holds K2 on the σ(ω) path's
+   signed weights against a float64 plain run (error at most 4× the float32
+   plain version's, or 1e-5);
 3. holds a small run on the card (float32, kernels) against the same run on
    the CPU (float64, plain versions);
 4. drives the main path — the 24×24 production configuration, 8 chains at 8
@@ -19,7 +23,8 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    launch counts reset just before and read after, each phase's count
    checked against the schedule, and every output checked finite;
 5. profiles one more K=1 sweep and transport pass with ``torch.profiler``
-   and prints device time by kernel family (outside the counted window).
+   and prints device time by kernel family, then times five transport passes
+   and profiles one alone (outside the counted window).
 
 One JSON line per phase; then the card's ``nvidia-smi`` name and power
 limit, the kernel table as one JSON line, and as the last line
@@ -52,6 +57,8 @@ K2_OPS_PER_LORENTZIAN = 6
 
 L_MAIN = 24
 N_CHAINS = 8
+#: the chains' temperatures: every third point of the production T grid
+TEMPS = np.logspace(-4.0, 3.0, 24)[::3]
 #: leapfrog steps: the production scan's thermalization setting
 #: (``Nt_therm_init`` in examples/T_scan_full_24x24/scan_config.json), with
 #: the harmonic dt0 of ``calc_optimal_dt`` — the state a scan starts from
@@ -72,16 +79,26 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events.  With
+    ``graph`` the calls are captured in one CUDA graph and replayed, so the
+    host's per-call overhead drops out and a short kernel's own device time
+    is what is measured."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(reps)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        run = g.replay
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
@@ -119,7 +136,7 @@ def main_config(dev):
     from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
 
     lat = LatticeSpec(L_MAIN, L_MAIN)
-    temps = np.logspace(-4.0, 3.0, 24)[::3]
+    temps = TEMPS
     betas = (1.0 / temps).tolist()
     params = make_params(beta=betas, dtype=torch.float32, device=dev,
                          **PHYS)
@@ -162,7 +179,8 @@ def kernel_phases(dev, gen, power: str):
               "K1 wrapper did not count its launch")
         pr, pi = kernels.rotation_s_parts_plain(tr, ti, d, 0.1)
         err = max(float((sr - pr).abs().max()), float((si - pi).abs().max()))
-        ms = cuda_ms(lambda: kernels.rotation_s_parts(tr, ti, d, 0.1), 20)
+        ms = cuda_ms(lambda: kernels.rotation_s_parts(tr, ti, d, 0.1), 20,
+                     graph=True)
         plain_ms = cuda_ms(
             lambda: kernels.rotation_s_parts_plain(tr, ti, d, 0.1), 5)
         bound_ms, bound_by = roofline(4 * (4 * B * n * n + B * n),
@@ -207,9 +225,8 @@ def kernel_phases(dev, gen, power: str):
         rel_err = float(((got - want).abs() / want.abs()).max())
         again = kernels.weighted_lorentzian_sum(omega, de, w2, spec.eta)
         repeat = bool(torch.equal(got, again))
-        reps = 3 if m == M and omega.shape[-1] > 1 else 20
         ms = cuda_ms(lambda: kernels.weighted_lorentzian_sum(
-            omega, de, w2, spec.eta), reps)
+            omega, de, w2, spec.eta), 20, graph=True)
         plain_ms = cuda_ms(lambda: kernels.weighted_lorentzian_sum_plain(
             omega, de, w2, spec.eta), 2, warmup=1)
         n_w = omega.shape[-1]
@@ -219,6 +236,7 @@ def kernel_phases(dev, gen, power: str):
               "shape": [B, n_w, m], "max_abs_err": abs_err,
               "max_rel_err": rel_err, "rtol": 1e-4, "bit_repeat": repeat,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "launch": launch_geometry(n_w, m),
               "launches": kernels.LAUNCHES["weighted_lorentzian_sum"],
               "gpu": power})
         check(rel_err <= 1e-4, f"K2 {label} at {(B, n_w, m)}: rel err "
@@ -229,7 +247,67 @@ def kernel_phases(dev, gen, power: str):
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
         del de, w2, got, want, again
+    signed_phase(dev, gen, grid, spec.eta, power)
     return table
+
+
+def launch_geometry(n_w: int, M: int) -> dict:
+    from dwavehmc_tpu_torch.ops import kernels
+
+    g = kernels._lorentzian_launch(n_w, M)
+    return dict(g._asdict(), threads=g.threads, columns=g.columns,
+                smem_bytes=g.smem_bytes)
+
+
+def signed_pairs(betas, n_levels: int, gen, dev):
+    """(de, w2) of σ(ω) as ``models/transport.optical_conductivity`` builds
+    them, for a ±-symmetric sorted spectrum of ``n_levels`` levels per
+    chain, Fermi factors at ``betas`` and a random symmetric nonnegative
+    |J|²: de = E_m − E_n, w2 = (f_n − f_m)·|J_nm|², float32 (B, n_levels²)."""
+    from dwavehmc_tpu_torch.ops.spectral import fermi_factors
+
+    B = len(betas)
+    e = torch.randn(B, n_levels // 2, generator=gen, device=dev,
+                    dtype=torch.float64).abs() * 1.5
+    E = torch.sort(torch.cat([-e, e], dim=-1), dim=-1).values
+    f = fermi_factors(E, torch.tensor(betas, dtype=torch.float64,
+                                      device=dev))
+    a = torch.rand(B, n_levels, n_levels, generator=gen, device=dev,
+                   dtype=torch.float64)
+    J2 = 0.5 * (a + a.mT)
+    de = (E[:, None, :] - E[:, :, None]).reshape(B, -1)
+    w2 = ((f[:, :, None] - f[:, None, :]) * J2).reshape(B, -1)
+    return de.float(), w2.float()
+
+
+def signed_phase(dev, gen, grid, eta: float, power: str) -> None:
+    """K2 on the σ(ω) path's signed weights at the main-path shape, the
+    kernel and the float32 plain version each held against the float64
+    plain version; error = max |S − S64| / max |S64| per chain."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    betas = (1.0 / TEMPS).tolist()
+    de, w2 = signed_pairs(betas, 2 * L_MAIN * L_MAIN, gen, dev)
+    omega = grid.expand(len(betas), -1).contiguous()
+    got = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
+    plain32 = kernels.weighted_lorentzian_sum_plain(omega, de, w2, eta)
+    want = kernels.weighted_lorentzian_sum_plain(
+        omega.double(), de.double(), w2.double(), eta)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=-1)
+
+    def err(s):
+        return float(((s.double() - want).abs().amax(dim=-1) / scale).max())
+
+    kernel_err, plain_err = err(got), err(plain32)
+    tol = max(4.0 * plain_err, 1e-5)
+    emit({"phase": "kernel.weighted_lorentzian_sum.signed",
+          "shape": list(de.shape[:1]) + [omega.shape[-1], de.shape[-1]],
+          "kernel_err": kernel_err, "plain_f32_err": plain_err, "tol": tol,
+          "finite": bool(torch.isfinite(got).all()), "gpu": power})
+    check(bool(torch.isfinite(got).all()), "K2 signed: non-finite output")
+    check(kernel_err <= tol, f"K2 signed: error {kernel_err} > {tol} "
+          f"(float32 plain {plain_err})")
 
 
 # --- small run: card (float32, kernels) vs CPU (float64, plain) -------------
@@ -372,11 +450,46 @@ FAMILIES = (("rotation_s", "K1 rotation_s"), ("lorentz", "K2 lorentzian"),
             ("elementwise", "elementwise"), ("copy", "copy"))
 
 
-def profile_phase(dev, seed: int, power: str) -> None:
-    """Device time by kernel family over one K=1 sweep plus one transport
-    pass of the main configuration."""
+def _device_profile(fn) -> tuple[float, dict]:
+    """(wall ms, device µs by kernel name) of one call of ``fn`` under
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels_us = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_us[ev.key] = kernels_us.get(ev.key, 0.0) + \
+                ev.self_device_time_total
+    return 1e3 * wall, kernels_us
+
+
+def _profile_summary(wall_ms: float, kernels_us: dict) -> dict:
+    families = {}
+    for name, us in kernels_us.items():
+        fam = next((f for frag, f in FAMILIES if frag in name.lower()),
+                   "other")
+        families[fam] = families.get(fam, 0.0) + us / 1e3
+    busy_ms = sum(kernels_us.values()) / 1e3
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "k2_kernels_ms": {k[:60]: us / 1e3 for k, us in kernels_us.items()
+                              if "lorentz" in k.lower()},
+            "family_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [[k[:90], us / 1e3] for k, us in top]}
+
+
+def profile_phase(dev, seed: int, power: str) -> None:
+    """Device time by kernel family over one K=1 sweep plus one transport
+    pass of the main configuration; then five transport passes timed on the
+    host one by one, and one more profiled alone."""
     from dwavehmc_tpu_torch.parallel.ensemble import (
         ensemble_transport_real,
         init_ensemble_real,
@@ -387,35 +500,31 @@ def profile_phase(dev, seed: int, power: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     states = init_ensemble_real(lat, params, gen, N_CHAINS,
                                 n_imp=PHYS["n_imp"], device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def sweep_and_transport():
+        nonlocal states
         states, _ = run_segment_tracked(lat, params, states, 1, NT, dt,
                                         True, anchor_every=1, generator=gen,
                                         **TRACK)
         ensemble_transport_real(lat, spec, params, states)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels_us = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kernels_us[ev.key] = kernels_us.get(ev.key, 0.0) + \
-            ev.self_device_time_total
-    families = {}
-    for name, us in kernels_us.items():
-        fam = next((f for frag, f in FAMILIES if frag in name.lower()),
-                   "other")
-        families[fam] = families.get(fam, 0.0) + us / 1e3
-    busy_ms = sum(kernels_us.values()) / 1e3
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile.sweep_K1_and_transport", "wall_ms": 1e3 * wall,
-          "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / (1e3 * wall),
-          "family_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
-          "top_kernels_ms": [[k[:90], us / 1e3] for k, us in top],
+
+    emit({"phase": "profile.sweep_K1_and_transport",
+          **_profile_summary(*_device_profile(sweep_and_transport)),
           "gpu": power})
+
+    def transport():
+        return ensemble_transport_real(lat, spec, params, states)
+
+    seconds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transport()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    emit({"phase": "profile.transport", "pass_seconds": seconds,
+          "median_seconds": float(np.median(seconds)),
+          **_profile_summary(*_device_profile(transport)), "gpu": power})
 
 
 def main(argv=None) -> int:

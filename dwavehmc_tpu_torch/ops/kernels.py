@@ -24,6 +24,7 @@ kernel launch adds one to ``LAUNCHES[name]``; nothing else touches the count.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -31,6 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -111,11 +113,9 @@ def _load(path: Path):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dwh_rotation_s_parts.argtypes = [p, p, p, p, p, i, i, f, p]
     lib.dwh_rotation_s_parts.restype = i
-    lib.dwh_weighted_lorentzian_sum.argtypes = [p, p, p, p, p, i, i, i, i, f,
-                                                p]
+    lib.dwh_weighted_lorentzian_sum.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                i, i, i, i, i, f, p]
     lib.dwh_weighted_lorentzian_sum.restype = i
-    lib.dwh_lorentzian_chunk_size.argtypes = []
-    lib.dwh_lorentzian_chunk_size.restype = i
     return lib
 
 
@@ -215,6 +215,66 @@ def weighted_lorentzian_sum_plain(omega, de, w2, eta, chunk: int = 16):
     return torch.cat(outs, dim=-1)
 
 
+#: pairs a K2 block stages in shared memory (32 KB as float4 pairs)
+LORENTZ_CHUNK = 4096
+#: frequencies a K2 thread keeps in registers on the wide (σ(ω)) geometry
+LORENTZ_R = (4, 5, 6, 7, 8)
+
+
+class LorentzianLaunch(NamedTuple):
+    """K2's launch geometry.  Frequency w of tile t is computed by lane
+    ``w % tile_w`` of the block's frequency lanes as register
+    ``r = (w - t·tile_w·R) // tile_w``; the pairs of chunk c,
+    ``[c·chunk, (c+1)·chunk)``, are read as float4 doubles, double j by
+    pair lane ``j % pair_lanes``."""
+
+    tile_w: int        # frequency lanes per block
+    R: int             # frequencies per thread, in registers
+    pair_lanes: int    # threads splitting a chunk's pairs (a power of two)
+    chunk: int         # pairs per block
+    n_chunks: int
+    n_tiles: int       # frequency tiles (grid y)
+
+    @property
+    def threads(self) -> int:
+        return self.tile_w * self.pair_lanes
+
+    @property
+    def columns(self) -> int:
+        """Frequency columns computed, padding included."""
+        return self.n_tiles * self.tile_w * self.R
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory: the float4 pairs, the tree over pair lanes
+        (if any) and 32 floats of range check, as ``csrc/lorentzian.cu``
+        lays it out."""
+        tree = self.R * self.threads if self.pair_lanes > 1 else 0
+        return 8 * self.chunk + 4 * (tree + 32)
+
+
+@functools.lru_cache(maxsize=64)
+def _lorentzian_launch(n_w: int, M: int) -> LorentzianLaunch:
+    """Geometry of one K2 call on (·, n_w) frequencies and M pairs.
+
+    Wide calls (n_w ≥ 128, the σ(ω) grid) use one pair lane and R ≥ 4
+    frequencies per thread, with the (R, warps) that computes the fewest
+    columns (1436 → 9 warps × 5 = 1440; ties go to fewer tiles, then to the
+    larger R).  Narrow calls (the DC call at one frequency) keep one
+    frequency per thread and split each chunk's pairs over 256 / tile_w
+    lanes, so the card fills with n_chunks × B blocks.  Blocks are whole
+    warps of at most 512 threads."""
+    n_chunks = max(1, -(-M // LORENTZ_CHUNK))
+    if n_w < 128:
+        tile_w = 1 << max(0, n_w - 1).bit_length()
+        return LorentzianLaunch(tile_w, 1, 256 // tile_w, LORENTZ_CHUNK,
+                                n_chunks, 1)
+    wide = (LorentzianLaunch(32 * warps, R, 1, LORENTZ_CHUNK, n_chunks,
+                             -(-n_w // (32 * warps * R)))
+            for R in LORENTZ_R for warps in range(1, 17))
+    return min(wide, key=lambda g: (g.columns, g.n_tiles, -g.R))
+
+
 def weighted_lorentzian_sum_cuda(omega, de, w2, eta: float):
     """Launch K2 on float32 CUDA tensors omega (B, n_ω), de/w2 (B, M)."""
     B, n_w = omega.shape
@@ -227,12 +287,13 @@ def weighted_lorentzian_sum_cuda(omega, de, w2, eta: float):
     if B == 0 or n_w == 0:
         return out
     lib = _library()
-    n_chunks = max(1, -(-M // lib.dwh_lorentzian_chunk_size()))
-    partial = torch.empty((B, n_chunks, n_w), dtype=torch.float32,
+    g = _lorentzian_launch(n_w, M)
+    partial = torch.empty((B, g.n_chunks, n_w), dtype=torch.float32,
                           device=dev)
     err = lib.dwh_weighted_lorentzian_sum(
         omega.data_ptr(), de.data_ptr(), w2.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), B, n_w, M, n_chunks, float(eta), _stream(dev))
+        out.data_ptr(), B, n_w, M, g.tile_w, g.R, g.pair_lanes, g.chunk,
+        g.n_chunks, g.smem_bytes, float(eta), _stream(dev))
     _raise_on(err, "weighted_lorentzian_sum")
     LAUNCHES["weighted_lorentzian_sum"] += 1
     return out

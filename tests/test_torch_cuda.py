@@ -70,6 +70,62 @@ def test_lorentzian_kernel_matches_plain(cuda, batch, n_w, M):
     assert torch.equal(got, again)            # no atomics: bit-identical
 
 
+def _signed_pairs(betas, n_levels, seed=2):
+    """(de, w2) of σ(ω) as ``models/transport.optical_conductivity`` builds
+    them: a ±-symmetric sorted spectrum, Fermi factors at ``betas``, a random
+    symmetric nonnegative |J|²; float32 (B, n_levels²)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(betas)
+    e = torch.randn(B, n_levels // 2, generator=g, dtype=torch.float64)
+    E = torch.sort(torch.cat([-e.abs(), e.abs()], -1) * 1.5, -1).values
+    f = torch.sigmoid(-torch.tensor(betas, dtype=torch.float64)[:, None] * E)
+    a = torch.rand(B, n_levels, n_levels, generator=g, dtype=torch.float64)
+    J2 = 0.5 * (a + a.mT)
+    de = (E[:, None, :] - E[:, :, None]).reshape(B, -1)
+    w2 = ((f[:, :, None] - f[:, None, :]) * J2).reshape(B, -1)
+    return de.float(), w2.float()
+
+
+def test_lorentzian_signed_weights_against_float64(cuda):
+    """The σ(ω) path's signed, partly cancelling weights at (2, 1436, 50000):
+    the kernel's error relative to max |S| per chain is at most 4× the
+    float32 plain version's, or 1e-5."""
+    de, w2 = (x[:, :50000].to(cuda) for x in _signed_pairs([1e4, 0.5], 224))
+    eta = 8.0 / 576
+    omega = (eta + torch.arange(1436, dtype=torch.float32, device=cuda)
+             * (0.2 * eta)).expand(2, -1).contiguous()
+    got = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
+    plain32 = kernels.weighted_lorentzian_sum_plain(omega, de, w2, eta)
+    want = kernels.weighted_lorentzian_sum_plain(
+        omega.double(), de.double(), w2.double(), eta)
+    scale = want.abs().amax(-1)
+
+    def err(s):
+        return float(((s.double() - want).abs().amax(-1) / scale).max())
+
+    assert err(got) <= max(4.0 * err(plain32), 1e-5)
+
+
+@pytest.mark.parametrize("eta,de_scale,w_scale", [(1e-12, 2.0, 1.0),
+                                                  (0.05, 1e10, 1.0),
+                                                  (0.05, 2.0, 1e19)])
+def test_lorentzian_out_of_range_inputs(cuda, eta, de_scale, w_scale):
+    """A tiny η, a huge |de| or a huge |w2| takes the kernel off the
+    two-pair fraction, whose product a·b would leave the normal floats; the
+    sum still matches the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    omega = torch.linspace(0.01, 4.0, 300)[None].expand(2, -1).contiguous()
+    de = torch.randn(2, 9000, generator=g) * de_scale
+    w2 = (torch.rand(2, 9000, generator=g) - 0.3) * w_scale
+    omega, de, w2 = (x.to(cuda) for x in (omega, de, w2))
+    got = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
+    want = kernels.weighted_lorentzian_sum_plain(
+        omega.double(), de.double(), w2.double(), eta)
+    assert bool(torch.isfinite(got).all())
+    scale = want.abs().amax(-1, keepdim=True)
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+
+
 def test_lorentzian_single_peak(cuda):
     omega = torch.linspace(0.0, 2.0, 21, device=cuda)[None]
     de = torch.ones((1, 1), device=cuda)
