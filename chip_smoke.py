@@ -13,16 +13,28 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    device time and not the host's launch rate); holds K2 on the σ(ω) path's
    signed weights against a float64 plain run (error at most 4× the float32
    plain version's, or 1e-5);
-3. holds a small run on the card (float32, kernels) against the same run on
-   the CPU (float64, plain versions);
-4. drives the main path — the 24×24 production configuration, 8 chains at 8
+3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
+   IEEE float32 products asserted): no fallback, eigenvalues against
+   float64 ``eigh`` within 4× float32 ``eigh``'s error (or 1e-5·‖M‖∞),
+   ‖XᵀX + YᵀY − I‖max ≤ 5e-4, the positive-level projector within 1e-3 of
+   the full-embedding (qdwh) anchor's, and times both anchors; then a batch
+   with one gapless chain must fall back to ``diagonalize_embedding``;
+4. holds a small run on the card (float32, kernels) against the same run on
+   the CPU (float64, plain versions), once per exact solver (qdwh, ph);
+5. drives the main path — the 24×24 production configuration, 8 chains at 8
    temperatures of the production T grid, tracked leapfrog (Nt = 20) with
    ``exact_solver="qdwh"``: ``init_ensemble_real``, a 2-sweep
    ``run_segment_tracked`` with K=1, a 4-sweep one with K=4 (3 cheap + 1
    exact anchor), ``ensemble_transport_real`` after each — with the kernel
    launch counts reset just before and read after, each phase's count
    checked against the schedule, and every output checked finite;
-5. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+6. drives the scan entry point, ``run_scan_vectorized``, at the same width
+   and temperatures with the guarded PH anchor into ``build/scan_smoke/``
+   (anneal, therm, probe and four measurement sweeps with a transport pass
+   each), resumes it to six sweeps, and runs the untracked exact sweep at
+   12×12; counts are reset before and read after each run and checked
+   against the schedule, the CSVs, bins and health file are checked;
+7. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -36,13 +48,17 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 #: outside the tensor cores
@@ -145,10 +161,11 @@ def main_config(dev):
     return lat, production_spec(lat), temps, params, dt
 
 
-def expected_rotations(n_sweeps: int, K: int) -> int:
-    """K1 launches of one segment: every tracked rotation is one batched
-    launch; cheap sweeps add the endpoint refine and polish rotations."""
-    per_step = NT * TRACK["tracked_iters"]
+def expected_rotations(n_sweeps: int, K: int, nt: int = NT) -> int:
+    """K1 launches of one segment of ``nt``-step sweeps: every tracked
+    rotation is one batched launch; cheap sweeps add the endpoint refine
+    and polish rotations."""
+    per_step = nt * TRACK["tracked_iters"]
     cheap = per_step + TRACK["refine_iters"] + TRACK["polish_iters"]
     total, done = 0, 0
     while done < n_sweeps:
@@ -312,7 +329,7 @@ def signed_phase(dev, gen, grid, eta: float, power: str) -> None:
 
 # --- small run: card (float32, kernels) vs CPU (float64, plain) -------------
 
-def reference_phase(dev, seed: int) -> None:
+def reference_phase(dev, seed: int, solver: str) -> None:
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
     from dwavehmc_tpu_torch.models.params import make_params
     from dwavehmc_tpu_torch.parallel.ensemble import (
@@ -328,7 +345,8 @@ def reference_phase(dev, seed: int) -> None:
     g = torch.Generator().manual_seed(seed)
     p64 = make_params(beta=betas, dtype=torch.float64, device="cpu", **PHYS)
     s64 = init_ensemble_real(lat, p64, g, 2, dtype=torch.float64,
-                             n_imp=PHYS["n_imp"], device="cpu")
+                             n_imp=PHYS["n_imp"], exact_solver=solver,
+                             device="cpu")
     p32 = make_params(beta=betas, dtype=torch.float32, device=dev, **PHYS)
     s32 = type(s64)(*(x.to(dev, torch.float32) for x in s64))
     normals = torch.randn((1, 2, 2, lat.n_sites, 2), generator=g,
@@ -343,16 +361,18 @@ def reference_phase(dev, seed: int) -> None:
         a = getattr(tr32, name).double().cpu()
         b = getattr(tr64, name)
         rel[name] = float((a - b).norm() / b.norm())
+    track = dict(TRACK, exact_solver=solver)
     _, seg64 = run_segment_tracked(lat, p64, s64, 1, NT,
                                    torch.tensor(dt, dtype=torch.float64),
                                    normals=normals, uniforms=uniforms,
-                                   **TRACK)
+                                   **track)
     _, seg32 = run_segment_tracked(lat, p32, s32, 1, NT,
                                    torch.tensor(dt, device=dev),
                                    normals=normals, uniforms=uniforms,
-                                   **TRACK)
+                                   **track)
     dH64, dH32 = seg64.dH[0], seg32.dH[0].double().cpu()
-    emit({"phase": "reference.6x6", "transport_rel_l2": rel,
+    emit({"phase": "reference.6x6", "exact_solver": solver,
+          "transport_rel_l2": rel,
           "dH_cpu_f64": dH64.tolist(), "dH_gpu_f32": dH32.tolist()})
     for name, r in rel.items():
         check(r <= 1e-3, f"reference {name}: rel L2 {r} > 1e-3")
@@ -442,6 +462,7 @@ def main_path(dev, seed: int, power: str) -> dict:
 
 #: kernel-name fragments → family, first match wins
 FAMILIES = (("rotation_s", "K1 rotation_s"), ("lorentz", "K2 lorentzian"),
+            ("trsm", "triangular solve"), ("potrf", "cholesky"),
             ("syev", "eigh"), ("sytrd", "eigh"), ("stedc", "eigh"),
             ("ormtr", "eigh"), ("gemm", "matmul"), ("gemv", "matmul"),
             ("cutlass", "matmul"), ("xmma", "matmul"),
@@ -527,6 +548,285 @@ def profile_phase(dev, seed: int, power: str) -> None:
           **_profile_summary(*_device_profile(transport)), "gpu": power})
 
 
+# --- the exact anchor: guarded PH solve vs the full eigh ---------------------
+
+def _anchor_batch(dev, gen, gapless_first: bool = False):
+    """(params, embedding M) of 8 chains at 24×24: the production couplings,
+    disorder and a random Δ start (a non-degenerate spectrum); with
+    ``gapless_first`` chain 0 is the clean lattice at t′ = 0, μ = 0, Δ = 0,
+    whose band touches zero."""
+    from dwavehmc_tpu_torch.models.bdg_real import (
+        assemble_embedding, static_embedding)
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.sampler.hmc_real import init_chain_state_real
+
+    lat = LatticeSpec(L_MAIN, L_MAIN)
+    tp = [PHYS["tp"]] * N_CHAINS
+    mu = [PHYS["mu"]] * N_CHAINS
+    if gapless_first:
+        tp[0] = mu[0] = 0.0
+    phys = dict(PHYS, tp=tp, mu=mu)
+    params = make_params(beta=(1.0 / TEMPS).tolist(), dtype=torch.float32,
+                         device=dev, **phys)
+    s = init_chain_state_real(lat, params, N_CHAINS, generator=gen,
+                              n_imp=PHYS["n_imp"], diagonalize=False,
+                              device=dev)
+    if gapless_first:
+        for x in (s.delta_re, s.delta_im, s.disorder):
+            x[0] = 0.0
+    M = assemble_embedding(lat, static_embedding(lat, params.t, params.tp,
+                                                 params.mu, s.disorder),
+                           s.delta_re, s.delta_im)
+    return M
+
+
+def event_ms(fn, reps: int = 3) -> list:
+    """Device milliseconds of ``reps`` single calls, each between two CUDA
+    events (after one warm-up call)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop))
+    return out
+
+
+def _positive_projector(X, Y):
+    """(Re, Im) of Σ_{E>0} u u† from the (B, 2N, 2N) eigenvector parts."""
+    n = X.shape[-1] // 2
+    Xp, Yp = X[..., n:], Y[..., n:]
+    return Xp @ Xp.mT + Yp @ Yp.mT, Yp @ Xp.mT - Xp @ Yp.mT
+
+
+#: orthonormality of the PH eigenvectors in float32, ‖XᵀX + YᵀY − I‖max: the
+#: JAX package's own bound (tests/test_ph_eigh.py).  The positive/negative
+#: cross block measures the positive subspace's error, ≈ ε·‖M‖/gap for the
+#: levels nearest zero, so it exceeds float32 ``eigh``'s own at 2304.
+PH_ORTH_TOL = 5e-4
+
+
+def anchor_phases(dev, gen, power: str) -> None:
+    """The guarded PH solve at the main path's shape against float64 and
+    float32 ``torch.linalg.eigh`` and the full-embedding (qdwh) anchor, then
+    the fallback on a batch holding one gapless chain."""
+    from dwavehmc_tpu_torch.models.bdg_real import diagonalize_embedding
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls are not IEEE (TF32 allowed)")
+    M = _anchor_batch(dev, gen)
+    ph_eigh.reset_guard()
+    ev, X, Y, fb = ph_eigh.diagonalize_embedding_ph_guarded(M)
+    w64 = torch.linalg.eigvalsh(M.double())[..., ::2]
+    w32 = torch.linalg.eigvalsh(M)[..., ::2]
+    ev_q, X_q, Y_q = diagonalize_embedding(M)
+    norm = float(M.abs().sum(-1).amax())
+    err_ph = float((ev.double() - w64).abs().max())
+    err_32 = float((w32.double() - w64).abs().max())
+    tol = max(4.0 * err_32, 1e-5 * norm)
+    eye = torch.eye(X.shape[-1], device=dev)
+    orth = float((X.mT @ X + Y.mT @ Y - eye).abs().max())
+    (pr, pi), (qr, qi) = _positive_projector(X, Y), _positive_projector(
+        X_q, Y_q)
+    proj = max(float((pr - qr).abs().max()), float((pi - qi).abs().max()))
+    ph_ms = event_ms(lambda: ph_eigh.diagonalize_embedding_ph_guarded(M))
+    qdwh_ms = event_ms(lambda: diagonalize_embedding(M))
+    ph_profile = _profile_summary(*_device_profile(
+        lambda: ph_eigh.diagonalize_embedding_ph_guarded(M)))
+    emit({"phase": "anchor.ph", "shape": list(M.shape),
+          "used_fallback": fb, "eval_err_ph": err_ph,
+          "eval_err_eigh_f32": err_32, "tol": tol, "norm_inf": norm,
+          "orth_err": orth, "projector_err_vs_qdwh": proj,
+          "ph_ms": ph_ms, "ph_ms_median": float(np.median(ph_ms)),
+          "qdwh_ms": qdwh_ms, "qdwh_ms_median": float(np.median(qdwh_ms)),
+          "ph_profile": {k: ph_profile[k] for k in (
+              "wall_ms", "device_busy_ms", "family_ms", "top_kernels_ms")},
+          "guard": dict(ph_eigh.GUARD), "gpu": power})
+    check(not fb, "anchor.ph: the guard fell back on a healthy batch")
+    check(err_ph <= tol, f"anchor.ph: eigenvalue error {err_ph} > {tol}")
+    check(orth <= PH_ORTH_TOL, f"anchor.ph: ‖XᵀX+YᵀY−I‖max {orth} > "
+          f"{PH_ORTH_TOL}")
+    check(proj <= 1e-3, f"anchor.ph: projector differs from qdwh's by "
+          f"{proj} > 1e-3")
+    del X, Y, X_q, Y_q, pr, pi, qr, qi
+
+    Mg = _anchor_batch(dev, gen, gapless_first=True)
+    ev, X, Y, fb = ph_eigh.diagonalize_embedding_ph_guarded(Mg)
+    ev0, X0, Y0 = diagonalize_embedding(Mg)
+    diff = max(float((a - b).abs().max())
+               for a, b in ((ev, ev0), (X, X0), (Y, Y0)))
+    emit({"phase": "anchor.ph_fallback", "shape": list(Mg.shape),
+          "used_fallback": fb, "max_abs_diff_vs_diagonalize_embedding": diff,
+          "guard": dict(ph_eigh.GUARD), "gpu": power})
+    check(fb, "anchor.ph_fallback: the gapless chain did not force the "
+          "fallback")
+    check(diff == 0.0, f"anchor.ph_fallback: result differs from "
+          f"diagonalize_embedding by {diff}")
+
+
+# --- the scan entry point -----------------------------------------------------
+
+#: the production scan's settings (examples/T_scan_full_24x24/scan_config.json
+#: and the RunConfig defaults), cut to a fixed schedule of a few sweeps
+SCAN = dict(Lx=L_MAIN, Ly=L_MAIN, t=1.0, tp=-0.35, mu=-1.08, W=1.0,
+            n_imp=0.05, J=0.8, mass=1.0, dtype="float32", path="real",
+            eigh_mode="tracked", exact_solver="ph", anchor_every=1,
+            Nt_therm_init=20, Nt_measure=6, anneal_stages=1, anneal_sweeps=1,
+            n_therm=5, meas_probe_sweeps=2, n_measure=4,
+            measure_transport_freq=1, bin_size=2, checkpoint_freq=2,
+            Nt_escalate=False, verbose=False)
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _check_csvs(d: str, C: int, n_rows: int) -> int:
+    """Header, row count and finite values of one point's CSVs.  A dH may
+    be non-finite only on a rejected sweep (a diverged proposal, zeroed and
+    rejected, as in the JAX package); returns how many such rows there
+    are."""
+    from dwavehmc_tpu_torch.utils.io import OBS_HEADER, TRANS_HEADER
+
+    diverged = 0
+    for name, header in (("observables.csv", OBS_HEADER),
+                         ("transport.csv", TRANS_HEADER)):
+        lines = _read(os.path.join(d, name)).splitlines()
+        check(lines[0] == header, f"{d}/{name}: header {lines[0]!r}")
+        check(len(lines) == 1 + n_rows * C, f"{d}/{name}: "
+              f"{len(lines) - 1} rows, expected {n_rows * C}")
+        vals = np.array([[float(x) for x in ln.split(",")]
+                         for ln in lines[1:]])
+        ok = np.isfinite(vals)
+        if name == "observables.csv":
+            i_acc, i_dH = header.split(",").index("Accepted"), \
+                header.split(",").index("dH")
+            bad_dH = ~ok[:, i_dH]
+            check(not bool((bad_dH & (vals[:, i_acc] != 0)).any()),
+                  f"{d}/{name}: an accepted sweep has a non-finite dH")
+            diverged += int(bad_dH.sum())
+            ok[:, i_dH] = True
+        check(bool(ok.all()), f"{d}/{name}: non-finite value")
+    return diverged
+
+
+def _scan_run(cfg, dev, values):
+    from dwavehmc_tpu_torch.drivers.scan import run_scan_vectorized
+    from dwavehmc_tpu_torch.ops import kernels, ph_eigh
+
+    kernels.reset_launches()
+    ph_eigh.reset_guard()
+    t0 = time.perf_counter()
+    out = run_scan_vectorized(cfg, values, scan_param="T", replicas=1,
+                              device=dev)
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def _stage_rates(out, chains: int) -> dict:
+    return {k: chains * out["stage_sweeps"][k] / sec
+            for k, sec in out["stage_seconds"].items()
+            if out["stage_sweeps"][k] and sec > 0}
+
+
+def scan_phases(dev, power: str) -> dict:
+    """``run_scan_vectorized`` at the production width into build/, then a
+    resume to six measurement sweeps; then the untracked exact sweep at
+    12×12.  Kernel counts are zeroed just before each run and read just
+    after it."""
+    import shutil
+
+    from dwavehmc_tpu_torch.utils.config import RunConfig
+    from dwavehmc_tpu_torch.utils.io import SpectraBinStore
+
+    root = os.path.join(REPO, "build", "scan_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = RunConfig(**SCAN, out_dir=os.path.join(root, "tracked"))
+    values = TEMPS
+    out, launches, sec = _scan_run(cfg, dev, values)
+    # every sweep exactly anchored (K = 1): anneal and therm at
+    # Nt_therm_init, probe and measurement at Nt_measure
+    nt_a, nt_m = cfg.Nt_therm_init, cfg.Nt_measure
+    k1_want = (expected_rotations(cfg.anneal_stages * cfg.anneal_sweeps
+                                  + cfg.n_therm, 1, nt_a)
+               + expected_rotations(cfg.meas_probe_sweeps + cfg.n_measure,
+                                    1, nt_m))
+    health = json.loads(_read(os.path.join(cfg.out_dir,
+                                           "therm_health.json")))
+    acc = [h["measurement"]["mean_acc"] for h in health.values()]
+    pre, diverged = {}, 0
+    for d in out["dirs"]:
+        diverged += _check_csvs(d, 1, cfg.n_measure)
+        for name in ("observables.csv", "transport.csv"):
+            pre[(d, name)] = _read(os.path.join(d, name))
+    emit({"phase": "scan.vectorized", "lattice": [cfg.Lx, cfg.Ly],
+          "T": values.tolist(), "seconds": sec,
+          "stage_seconds": out["stage_seconds"],
+          "stage_sweeps": out["stage_sweeps"],
+          "traj_per_s": _stage_rates(out, len(values)),
+          "measurement_acceptance": float(np.mean(acc)),
+          "acceptance_by_point": acc, "rejected_nonfinite_dH": diverged,
+          "launches": launches, "k1_expected": k1_want,
+          "ph_guard": out["ph_guard"], "gpu": power})
+    check(launches["rotation_s_parts"] == k1_want,
+          f"scan: {launches['rotation_s_parts']} K1 launches, the schedule "
+          f"implies {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 2 * cfg.n_measure,
+          f"scan: {launches['weighted_lorentzian_sum']} K2 launches, "
+          f"expected 2 per transport pass")
+    check(set(health) == {f"T_{v:.6g}" for v in values},
+          "therm_health.json lacks a point")
+
+    cfg2 = dataclasses.replace(cfg, n_measure=6, resume=True)
+    out2, launches2, sec2 = _scan_run(cfg2, dev, values)
+    k1_want2 = expected_rotations(2, 1, nt_m)
+    for d in out2["dirs"]:
+        _check_csvs(d, 1, cfg2.n_measure)
+        for name in ("observables.csv", "transport.csv"):
+            check(_read(os.path.join(d, name)).startswith(pre[(d, name)]),
+                  f"resume rewrote the earlier rows of {d}/{name}")
+        _, bins = SpectraBinStore.load_bins(os.path.join(
+            d, "spectra_bins.npz"))
+        check(sorted(bins) == [2, 4, 6], f"{d}: bins {sorted(bins)}")
+        check(all(bool(np.isfinite(a).all()) for b in bins.values()
+                  for a in b.values()), f"{d}: non-finite spectra")
+    emit({"phase": "scan.vectorized.resume", "seconds": sec2,
+          "stage_seconds": out2["stage_seconds"],
+          "stage_sweeps": out2["stage_sweeps"], "launches": launches2,
+          "k1_expected": k1_want2, "ph_guard": out2["ph_guard"],
+          "gpu": power})
+    check(launches2["rotation_s_parts"] == k1_want2,
+          f"resume: {launches2['rotation_s_parts']} K1 launches, expected "
+          f"{k1_want2}")
+    check(launches2["weighted_lorentzian_sum"] == 4,
+          f"resume: {launches2['weighted_lorentzian_sum']} K2 launches")
+
+    cfg3 = RunConfig(**dict(SCAN, Lx=12, Ly=12, eigh_mode="exact",
+                            anneal_stages=0, n_therm=2, n_measure=2,
+                            meas_probe_sweeps=0, checkpoint_freq=0),
+                     out_dir=os.path.join(root, "exact"))
+    out3, launches3, sec3 = _scan_run(cfg3, dev, TEMPS[[2, 5]])
+    emit({"phase": "scan.exact_mode", "lattice": [12, 12], "seconds": sec3,
+          "stage_seconds": out3["stage_seconds"], "launches": launches3,
+          "ph_guard": out3["ph_guard"], "gpu": power})
+    for d in out3["dirs"]:
+        _check_csvs(d, 1, cfg3.n_measure)
+    check(launches3["rotation_s_parts"] == 0, "exact mode launched K1")
+    check(launches3["weighted_lorentzian_sum"] == 2 * cfg3.n_measure,
+          f"exact mode: {launches3['weighted_lorentzian_sum']} K2 launches")
+    return {name: launches[name] + launches2[name] + launches3[name]
+            for name in launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -549,10 +849,16 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     table = kernel_phases(dev, gen, power)
-    reference_phase(dev, args.seed)
+    anchor_phases(dev, gen, power)
+    for solver in ("qdwh", "ph"):
+        reference_phase(dev, args.seed, solver)
     launches = main_path(dev, args.seed, power)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    scan_launches = scan_phases(dev, power)
+    for name, n in scan_launches.items():
+        check(n > 0, f"kernel {name} was not launched by the scan")
+        launches[name] += n
     profile_phase(dev, args.seed, power)
 
     rows = [

@@ -1,0 +1,64 @@
+"""Temperature-scan production workload on the card (port of
+``scripts/batch_scan_T.py``):
+
+    python -m dwavehmc_tpu_torch.drivers.batch_scan_T [--device cuda|cpu] ...
+
+Defaults are the production shape: 24×24 lattice, t=1, t'=−0.35, μ=−1.08,
+W=1, n_imp=0.05, J=0.8; 24 log-spaced T ∈ [1e−4, 1e3]; η=8/N, Δω=0.2η,
+ω_max=4; 20 therm + 100 measure sweeps, Nt_therm=20, Nt_meas=6, transport
+every sweep, bin 10, a 10-stage β-ladder anneal.  Every ``RunConfig`` field
+is a flag.  ``--mode vectorized`` runs the whole grid as one ensemble;
+``--mode serial`` (one run per point) needs the complex path and is not
+ported.  ``--summarize`` (default on) writes ``summary_all.csv``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .postprocess import summarize_scan
+from .scan import default_T_grid, run_scan_vectorized
+from ..utils.config import RunConfig, add_cli_args, from_namespace
+
+
+def parser() -> argparse.ArgumentParser:
+    defaults = RunConfig(
+        Lx=24, Ly=24, W=1.0, n_imp=0.05, J=0.8,
+        n_therm=20, n_measure=100, Nt_therm_init=20, Nt_measure=6,
+        measure_transport_freq=1, bin_size=10,
+        # β-ladder warm start for the cold tail (T ≤ 1e-2 ⇒ β ≥ 100)
+        anneal_stages=10, anneal_sweeps=5, anneal_start_beta=100.0,
+        out_dir="data/T_scan")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_cli_args(p, defaults)
+    p.add_argument("--mode", choices=("vectorized", "serial"),
+                   default="vectorized")
+    p.add_argument("--n_T", type=int, default=24)
+    p.add_argument("--T_min", type=float, default=1e-4)
+    p.add_argument("--T_max", type=float, default=1e3)
+    p.add_argument("--replicas", type=int, default=None,
+                   help="chains per T point")
+    p.add_argument("--summarize", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+def main(argv=None) -> dict:
+    ns = parser().parse_args(argv)
+    cfg = from_namespace(ns)
+    if ns.mode == "serial":
+        raise NotImplementedError(
+            "--mode serial runs one run_simulation per point on the complex "
+            "path, which is not ported yet (ROADMAP Queue 1 (d))")
+    Ts = default_T_grid(ns.n_T, ns.T_min, ns.T_max)
+    out = run_scan_vectorized(cfg, Ts, scan_param="T", replicas=ns.replicas,
+                              device=ns.device)
+    if ns.summarize:
+        print("summary:", summarize_scan(cfg.out_dir, "T_", "T"))
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -152,24 +152,31 @@ def assemble_parts(lat: LatticeSpec, Hs_real: torch.Tensor,
     return Hr, Hi
 
 
+def symmetric_eigh(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of a batch of real symmetric matrices, with
+    float32 accuracy on the card.
+
+    On CUDA, PyTorch sends float32 matrices of dimension 32–512 to
+    cuSOLVER's Jacobi solver, whose eigenvalues were measured 25× less
+    accurate than the CPU's (2.2e-4 vs 8.8e-6 at dimension 144 on an H100)
+    — enough to move ΔH by 0.1 at β = 50.  Those matrices are diagonalized
+    in float64 and cast back; larger ones go to the divide-and-conquer
+    solver in float32."""
+    if A.is_cuda and A.dtype == torch.float32 and A.shape[-1] <= 512:
+        w, V = torch.linalg.eigh(A.double())
+        return w.float(), V.float()
+    return torch.linalg.eigh(A)
+
+
 def diagonalize_embedding(M: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(evals (B, 2N), X (B, 2N, 2N), Y (B, 2N, 2N)): one eigenpair per
     doubled level, kept as the JAX package keeps it (``V[..., ::2]``); the
     complex eigenvectors are U = X + iY (phase-arbitrary, which every
-    downstream quantity is invariant to).
-
-    On CUDA, PyTorch sends float32 matrices of dimension 32–512 to
-    cuSOLVER's Jacobi solver, whose eigenvalues were measured 25× less
-    accurate than the CPU's (2.2e-4 vs 8.8e-6 at 4N = 144 on an H100) —
-    enough to move ΔH by 0.1 at β = 50.  Those embeddings (lattices up to
-    11×11) are diagonalized in float64 and cast back; larger ones go to
-    the divide-and-conquer solver in float32."""
-    if M.is_cuda and M.dtype == torch.float32 and M.shape[-1] <= 512:
-        w, V = torch.linalg.eigh(M.double())
-        w, V = w.float(), V.float()
-    else:
-        w, V = torch.linalg.eigh(M)
+    downstream quantity is invariant to).  The eigensolver is
+    ``symmetric_eigh`` (float64 on the card up to dimension 512, i.e.
+    lattices up to 11×11)."""
+    w, V = symmetric_eigh(M)
     dim = M.shape[-1] // 2
     evals = w[..., ::2].contiguous()
     X = V[..., :dim, ::2].contiguous()

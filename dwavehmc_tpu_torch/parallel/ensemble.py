@@ -1,5 +1,6 @@
-"""Ensemble runner, real-pair tracked half (port of the tracked production
-path of ``dwavehmc_tpu/parallel/ensemble.py``).
+"""Ensemble runner, real-pair path (port of the real-pair half of
+``dwavehmc_tpu/parallel/ensemble.py``): the tracked production segment and
+the untracked ``run_segment_real``.
 
 Chains are the leading dimension of every tensor, so one call of each
 function advances the whole ensemble.  The JAX package splits a tracked
@@ -24,10 +25,13 @@ from ..models.observables_real import measure_observables_real
 from ..models.params import ModelParams, SpectralSpec
 from ..models.transport import SpectrumResult
 from ..models.transport_real import measure_transport_and_spectra_real
+from ..ops.ph_eigh import diagonalize_embedding_ph_guarded
 from ..sampler.hmc_real import (
     HMCStateReal,
     _exact_diagonalize,
+    hmc_sweep_real,
     init_chain_state_real,
+    proposal_embedding,
     tracked_accept,
     tracked_accept_cheap,
     tracked_leapfrog,
@@ -42,6 +46,16 @@ class SegmentResult(NamedTuple):
     observables: ObservablesResult | None
 
 
+def _batch_eigs(M: torch.Tensor, exact_solver: str):
+    """Eigenpairs of a batch of embeddings, for the init and the exact
+    anchors: "ph" is one floor-guarded PH solve of the whole batch (a chain
+    below the solver's floor sends the batch to the full eigh;
+    ``ops/ph_eigh.GUARD`` counts both), "qdwh" the full-embedding eigh."""
+    if exact_solver == "ph":
+        return diagonalize_embedding_ph_guarded(M)[:3]
+    return _exact_diagonalize(M, exact_solver)
+
+
 def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
                        generator: torch.Generator | None, n_chains: int, *,
                        dtype=torch.float32, n_imp: float = 0.0,
@@ -52,7 +66,9 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
     """``n_chains`` chains, each with its own disorder realization and Δ
     start, drawn from ``generator`` unless given.  ``init_chunk``:
     diagonalize the initial ensemble in sub-batches of this many chains to
-    bound the eigensolver's workspace."""
+    bound the eigensolver's workspace; each sub-batch is one
+    ``_batch_eigs`` call (a cold random-Δ spectrum is where near-zero
+    levels can sit under the PH solver's floor)."""
     states = init_chain_state_real(
         lat, params, n_chains, generator=generator, dtype=dtype, n_imp=n_imp,
         delta0_re=delta0_re, delta0_im=delta0_im, disorder=disorder,
@@ -61,7 +77,7 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
                                 states.disorder)
     M = assemble_embedding(lat, M_static, states.delta_re, states.delta_im)
     chunk = n_chains if init_chunk is None else max(1, init_chunk)
-    parts = [_exact_diagonalize(M[i:i + chunk], exact_solver)
+    parts = [_batch_eigs(M[i:i + chunk], exact_solver)
              for i in range(0, n_chains, chunk)]
     evals, X, Y = (torch.cat(xs) for xs in zip(*parts))
     return states._replace(evals=evals, X=X, Y=Y)
@@ -89,7 +105,8 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
     ``anchor_every`` = K: the exact embedding eigh anchors every K-th sweep;
     the K−1 sweeps in between accept on the refined tracked endpoint
     spectrum (``refine_iters`` fast + ``polish_iters`` "highest" rotations).
-    A final short block still ends on an exact anchor.  ``dt`` is a scalar
+    A final short block still ends on an exact anchor, one ``_batch_eigs``
+    call of the proposals' embeddings.  ``dt`` is a scalar
     or a per-chain (B,) step.  Draws: ``normals`` (n_sweeps, B, 2, N, 2) and
     ``uniforms`` (n_sweeps, B), or else from ``generator``, sweep by sweep.
     """
@@ -105,8 +122,10 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
         if cheap:
             states, info = tracked_accept_cheap(lat, params, states, prop)
         else:
+            eig_new = _batch_eigs(
+                proposal_embedding(lat, params, states, prop), exact_solver)
             states, info = tracked_accept(lat, params, states, prop,
-                                          exact_solver)
+                                          eig_new=eig_new)
         accs.append(info.accepted)
         dHs.append(info.dH)
         if measure:
@@ -121,10 +140,36 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
             states = sweep(states, done + j, cheap=j < k - 1)
         done += k
 
+    return states, _segment_result(accs, dHs, obss, measure)
+
+
+def run_segment_real(lat: LatticeSpec, params: ModelParams,
+                     states: HMCStateReal, n_sweeps: int, Nt: int, dt, *,
+                     measure: bool = True, eigh_mode: str = "exact",
+                     tracked_iters: int = 6,
+                     generator: torch.Generator | None = None,
+                     normals=None, uniforms=None
+                     ) -> tuple[HMCStateReal, SegmentResult]:
+    """``n_sweeps`` untracked-path sweeps (``hmc_sweep_real``) over the
+    ensemble; draws as in ``run_segment_tracked``."""
+    accs, dHs, obss = [], [], []
+    for i in range(n_sweeps):
+        n, u = _sweep_draws(normals, uniforms, i)
+        states, info = hmc_sweep_real(lat, params, states, Nt, dt, eigh_mode,
+                                      tracked_iters, normals=n, uniforms=u,
+                                      generator=generator)
+        accs.append(info.accepted)
+        dHs.append(info.dH)
+        if measure:
+            obss.append(measure_observables_real(lat, params, states))
+    return states, _segment_result(accs, dHs, obss, measure)
+
+
+def _segment_result(accs, dHs, obss, measure: bool) -> SegmentResult:
     obs = (ObservablesResult(*(torch.stack(xs) for xs in zip(*obss)))
            if measure else None)
-    return states, SegmentResult(accepted=torch.stack(accs),
-                                 dH=torch.stack(dHs), observables=obs)
+    return SegmentResult(accepted=torch.stack(accs), dH=torch.stack(dHs),
+                         observables=obs)
 
 
 def ensemble_transport_real(lat: LatticeSpec, spec: SpectralSpec,

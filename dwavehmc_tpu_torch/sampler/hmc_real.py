@@ -1,5 +1,6 @@
-"""Complex-free tracked HMC sweep (port of the tracked half of
-``dwavehmc_tpu/sampler/hmc_real.py``) over a leading chain dimension.
+"""Complex-free HMC sweeps (port of ``dwavehmc_tpu/sampler/hmc_real.py``)
+over a leading chain dimension: the split tracked sweep (leapfrog, then a
+cheap or an exact accept) and the untracked ``hmc_sweep_real``.
 
 Random draws come from an explicit ``torch.Generator``; every function that
 draws also takes its draws as arguments (``normals``, ``uniforms``,
@@ -27,6 +28,7 @@ from ..models.bdg_real import (
 from ..models.lattice import LatticeSpec
 from ..models.params import ModelParams, chain_view, sample_disorder
 from ..ops.forces_real import hmc_forces_real
+from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
 from ..ops.tracked_eigh import tracked_eigh_nofallback
 from ..utils.device import resolve_device
@@ -66,12 +68,13 @@ class Proposal(NamedTuple):
 
 
 def _exact_diagonalize(M, solver: str = "qdwh"):
-    """Anchor/init eigensolver: "qdwh" = ``torch.linalg.eigh`` on the full
-    embedding.  The PH-split solver ("ph") is not ported yet."""
+    """Anchor/init eigensolver switch: "qdwh" = ``torch.linalg.eigh`` on the
+    full embedding, "ph" = the PH-split half-dimension solver
+    (``ops/ph_eigh.diagonalize_embedding_ph``, unguarded)."""
+    if solver == "ph":
+        return diagonalize_embedding_ph(M)
     if solver != "qdwh":
-        raise NotImplementedError(
-            f"exact_solver={solver!r}: only 'qdwh' is ported; the PH-split "
-            "solver (ops/ph_eigh.py) is the next slice of the port")
+        raise ValueError(f"exact_solver={solver!r}: expected 'qdwh' or 'ph'")
     return diagonalize_embedding(M)
 
 
@@ -159,6 +162,27 @@ def draw_momenta(generator: torch.Generator, shape, dtype,
     return normals, uniforms
 
 
+def _refresh(params: ModelParams, state: HMCStateReal, normals, uniforms,
+             generator: torch.Generator | None, caller: str):
+    """(π_re0, π_im0, accept uniforms) of one sweep: the given standard
+    normals (B, 2, N, 2) scaled by √m and uniforms (B,), each drawn from
+    ``generator`` when not given."""
+    rdt = state.evals.dtype
+    dev = state.evals.device
+    if normals is None or uniforms is None:
+        if generator is None:
+            raise ValueError(f"{caller} needs generator= or the draws")
+        n_draw, u_draw = draw_momenta(
+            generator, (state.delta_re.shape[0], 2)
+            + tuple(state.delta_re.shape[1:]), rdt, dev)
+        normals = n_draw if normals is None else normals
+        uniforms = u_draw if uniforms is None else uniforms
+    normals = torch.as_tensor(normals, device=dev).to(rdt)
+    uniforms = torch.as_tensor(uniforms, device=dev).to(torch.float32)
+    scale = chain_view(torch.sqrt(params.mass).to(rdt), 3)
+    return normals[:, 0] * scale, normals[:, 1] * scale, uniforms
+
+
 def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                      state: HMCStateReal, Nt: int, dt,
                      tracked_iters: int = 6, refine_iters: int = 0,
@@ -180,18 +204,8 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
     beta, J, mass = params.beta, params.J, params.mass
     rdt = state.evals.dtype
     dev = state.evals.device
-    B = state.delta_re.shape[0]
-    if normals is None or uniforms is None:
-        if generator is None:
-            raise ValueError("tracked_leapfrog needs generator= or the draws")
-        n_draw, u_draw = draw_momenta(generator, (B, 2) + tuple(
-            state.delta_re.shape[1:]), rdt, dev)
-        normals = n_draw if normals is None else normals
-        uniforms = u_draw if uniforms is None else uniforms
-    normals = torch.as_tensor(normals, device=dev).to(rdt)
-    uniforms = torch.as_tensor(uniforms, device=dev).to(torch.float32)
-    scale = chain_view(torch.sqrt(mass).to(rdt), 3)
-    pi_re0, pi_im0 = normals[:, 0] * scale, normals[:, 1] * scale
+    pi_re0, pi_im0, uniforms = _refresh(params, state, normals, uniforms,
+                                        generator, "tracked_leapfrog")
 
     Hs_real = static_hamiltonian(lat, params.t, params.tp, params.mu,
                                  state.disorder)
@@ -295,20 +309,35 @@ def tracked_accept_cheap(lat: LatticeSpec, params: ModelParams,
     return new_state, info
 
 
+def proposal_embedding(lat: LatticeSpec, params: ModelParams,
+                       state: HMCStateReal, proposal: Proposal
+                       ) -> torch.Tensor:
+    """The embedding M (B, 4N, 4N) of the proposal's NaN-zeroed Δ."""
+    M_static = static_embedding(lat, params.t, params.tp, params.mu,
+                                state.disorder)
+    return assemble_embedding(lat, M_static,
+                              _finite_or_zero(proposal.delta_re),
+                              _finite_or_zero(proposal.delta_im))
+
+
 def tracked_accept(lat: LatticeSpec, params: ModelParams,
                    state: HMCStateReal, proposal: Proposal,
-                   exact_solver: str = "qdwh"
+                   exact_solver: str = "qdwh", eig_new=None
                    ) -> tuple[HMCStateReal, SweepInfo]:
     """Exact anchor: exact embedding eigh of the proposal, difference-based
-    ΔH, Metropolis select."""
+    ΔH, Metropolis select.  ``eig_new``: precomputed ``(evals, X, Y)`` of
+    the proposal's (NaN-zeroed) embedding, which skips the internal
+    diagonalization (the guarded PH anchor of
+    ``parallel/ensemble.run_segment_tracked``)."""
     p = proposal
     finite = _all_finite(p.delta_re, p.delta_im, p.pi_re, p.pi_im)
     dre_s = _finite_or_zero(p.delta_re)
     dim_s = _finite_or_zero(p.delta_im)
-    M_static = static_embedding(lat, params.t, params.tp, params.mu,
-                                state.disorder)
-    M = assemble_embedding(lat, M_static, dre_s, dim_s)
-    evals_n, X_n, Y_n = _exact_diagonalize(M, exact_solver)
+    if eig_new is not None:
+        evals_n, X_n, Y_n = eig_new
+    else:
+        M = proposal_embedding(lat, params, state, p)
+        evals_n, X_n, Y_n = _exact_diagonalize(M, exact_solver)
     dH, accept, info = _metropolis(params, state, p, evals_n, finite)
     new_state = HMCStateReal(
         delta_re=_select(accept, dre_s, state.delta_re),
@@ -318,3 +347,93 @@ def tracked_accept(lat: LatticeSpec, params: ModelParams,
         evals=_select(accept, evals_n, state.evals),
         X=_select(accept, X_n, state.X), Y=_select(accept, Y_n, state.Y))
     return new_state, info
+
+
+def hmc_sweep_real(lat: LatticeSpec, params: ModelParams,
+                   state: HMCStateReal, Nt: int, dt,
+                   eigh_mode: str = "exact", tracked_iters: int = 6, *,
+                   normals=None, uniforms=None,
+                   generator: torch.Generator | None = None
+                   ) -> tuple[HMCStateReal, SweepInfo]:
+    """One untracked-path HMC trajectory + Metropolis for every chain.
+
+    ``eigh_mode``:
+      * "exact"   — every leapfrog step runs the exact embedding eigh;
+      * "tracked" — leapfrog steps refine the carried eigenbasis with
+        ``tracked_iters`` tracked rotations, and ONE exact eigh at the
+        trajectory end re-anchors it and supplies the Metropolis energies.
+
+    Draws as in ``tracked_leapfrog``.  ΔH uses the upper half of the sorted
+    spectra (Σ over E > 0), and a proposal is not NaN-guarded, exactly as
+    the JAX package's ``hmc_sweep_real``."""
+    if eigh_mode not in ("exact", "tracked"):
+        raise ValueError(f"eigh_mode={eigh_mode!r}: expected 'exact' or "
+                         "'tracked'")
+    beta, J, mass = params.beta, params.J, params.mass
+    rdt = state.evals.dtype
+    dev = state.evals.device
+    pi_re0, pi_im0, u = _refresh(params, state, normals, uniforms, generator,
+                                 "hmc_sweep_real")
+
+    H_old = _energy_terms(state.delta_re, state.delta_im, pi_re0, pi_im0,
+                          state.evals, beta, J, mass)
+    tracked = eigh_mode == "tracked"
+    if tracked:
+        Hs_real = static_hamiltonian(lat, params.t, params.tp, params.mu,
+                                     state.disorder)
+    M_static = static_embedding(lat, params.t, params.tp, params.mu,
+                                state.disorder)
+    dt = torch.as_tensor(dt, dtype=rdt, device=dev)
+    dtv = chain_view(dt, 3)
+    coef = chain_view(dt / (2.0 * mass), 3)
+
+    F_re, F_im, _, _ = hmc_forces_real(
+        lat, state.delta_re, state.delta_im, state.evals, state.X, state.Y,
+        beta, J)
+    pre = pi_re0 + 0.5 * dtv * F_re
+    pim = pi_im0 + 0.5 * dtv * F_im
+    dre, dim_, evals_n, X_n, Y_n = (state.delta_re, state.delta_im,
+                                    state.evals, state.X, state.Y)
+    for _ in range(Nt):
+        dre = _finite_or_zero(dre + coef * pre)
+        dim_ = _finite_or_zero(dim_ + coef * pim)
+        if tracked:
+            hr, hi = assemble_parts(lat, Hs_real, dre, dim_)
+            evals_n, X_n, Y_n, _ = tracked_eigh_nofallback(
+                hr, hi, X_n, Y_n, n_iter=tracked_iters)
+        else:
+            evals_n, X_n, Y_n = diagonalize_embedding(
+                assemble_embedding(lat, M_static, dre, dim_))
+        F_re, F_im, _, _ = hmc_forces_real(lat, dre, dim_, evals_n, X_n,
+                                           Y_n, beta, J)
+        pre = pre + dtv * F_re
+        pim = pim + dtv * F_im
+    pre = pre - 0.5 * dtv * F_re
+    pim = pim - 0.5 * dtv * F_im
+
+    if tracked:
+        # re-anchor: exact spectrum at the trajectory end
+        evals_n, X_n, Y_n = diagonalize_embedding(
+            assemble_embedding(lat, M_static, dre, dim_))
+
+    d_kin = torch.sum(pre**2 + pim**2 - pi_re0**2 - pi_im0**2,
+                      dim=(-2, -1)) / (2.0 * mass)
+    d_bos = (beta / (2.0 * J)) * torch.sum(
+        dre**2 + dim_**2 - state.delta_re**2 - state.delta_im**2,
+        dim=(-2, -1))
+    half = evals_n.shape[-1] // 2
+    b2 = chain_view(beta, 2)
+    En = torch.abs(evals_n[..., half:])
+    Eo = torch.abs(state.evals[..., half:])
+    d_fer = -(beta * torch.sum(En - Eo, -1)
+              + 2.0 * torch.sum(softplus(-b2 * En) - softplus(-b2 * Eo), -1))
+    dH = d_kin + d_bos + d_fer
+    accept = (dH < 0) | (u < torch.exp(-dH.to(torch.float32)))
+    new_state = HMCStateReal(
+        delta_re=_select(accept, dre, state.delta_re),
+        delta_im=_select(accept, dim_, state.delta_im),
+        pi_re=pre, pi_im=pim, disorder=state.disorder,
+        evals=_select(accept, evals_n, state.evals),
+        X=_select(accept, X_n, state.X), Y=_select(accept, Y_n, state.Y))
+    return new_state, SweepInfo(accepted=accept, dH=dH, H_old=H_old,
+                                H_new=H_old + dH)

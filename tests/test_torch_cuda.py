@@ -171,3 +171,63 @@ def test_exact_anchor_eigenvalues_reach_float32_accuracy(cuda, L):
     got = diagonalize_embedding(M.float().to(cuda))[0].double().cpu()
     cpu_err = float((cpu32 - want).abs().max())
     assert float((got - want).abs().max()) <= max(2.0 * cpu_err, 2e-5)
+
+
+def _ph_embedding(L, seed, gapless=False):
+    """(1, 4N, 4N) float64 CPU embedding: disorder and a random Δ, or the
+    clean gapless lattice (t′ = 0, μ = 0, Δ = 0)."""
+    from dwavehmc_tpu_torch.models.bdg_real import (
+        assemble_embedding, static_embedding)
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+
+    lat = LatticeSpec(L, L)
+    g = torch.Generator().manual_seed(seed)
+    p = make_params(tp=0.0 if gapless else -0.35, mu=0.0 if gapless else -1.08,
+                    dtype=torch.float64, device="cpu")
+    N = lat.n_sites
+    dis = torch.zeros(1, N, dtype=torch.float64)
+    dre = torch.zeros(1, N, 2, dtype=torch.float64)
+    dim = torch.zeros_like(dre)
+    if not gapless:
+        dis = (torch.rand(1, N, generator=g, dtype=torch.float64)
+               < 0.05).double()
+        dre, dim = (0.1 * (torch.rand(1, N, 2, generator=g,
+                                      dtype=torch.float64) - 0.5)
+                    for _ in range(2))
+    return assemble_embedding(lat, static_embedding(lat, p.t, p.tp, p.mu,
+                                                    dis), dre, dim)
+
+
+@pytest.mark.parametrize("L", [6, 12, 16, 17])
+def test_guarded_ph_anchor_reaches_float32_accuracy(cuda, L):
+    """The guarded PH solve in float32 on the card, either side of the
+    512-dimension switch of its half-dimension eigh (2N = 72 … 578): no
+    fallback, eigenvalues as good as float32 ``eigh``'s on the CPU."""
+    from dwavehmc_tpu_torch.ops.ph_eigh import diagonalize_embedding_ph_guarded
+
+    M = _ph_embedding(L, L)
+    want = torch.linalg.eigvalsh(M)[..., ::2]
+    cpu_err = float((torch.linalg.eigvalsh(M.float())[..., ::2].double()
+                     - want).abs().max())
+    w, X, Y, fb = diagonalize_embedding_ph_guarded(M.float().to(cuda))
+    assert fb is False
+    err = float((w.double().cpu() - want).abs().max())
+    assert err <= max(4.0 * cpu_err, 1e-5 * float(M.abs().sum(-1).max()))
+    # orthonormality to the JAX package's own float32 bound
+    # (tests/test_ph_eigh.py)
+    gram = X.mT @ X + Y.mT @ Y
+    assert float((gram - torch.eye(gram.shape[-1], device=cuda)).abs()
+                 .max()) <= 5e-4
+
+
+def test_guarded_ph_anchor_falls_back_on_the_card(cuda):
+    from dwavehmc_tpu_torch.models.bdg_real import diagonalize_embedding
+    from dwavehmc_tpu_torch.ops.ph_eigh import diagonalize_embedding_ph_guarded
+
+    M = torch.cat([_ph_embedding(4, 1), _ph_embedding(4, 0, gapless=True)])
+    M = M.float().to(cuda)
+    w, X, Y, fb = diagonalize_embedding_ph_guarded(M)
+    w0, X0, Y0 = diagonalize_embedding(M)
+    assert fb is True
+    assert torch.equal(w, w0) and torch.equal(X, X0) and torch.equal(Y, Y0)

@@ -128,6 +128,13 @@ def test_leapfrog_draws_from_generator(ensemble):
 
 
 def test_ph_solver_is_not_ported_yet(ensemble):
+    """The anchor's solver switch: "ph" reaches the PH-split solver (its
+    parity is in test_torch_ph_eigh.py) and an unknown name raises."""
     _, _, tp, ts = ensemble
-    with pytest.raises(NotImplementedError):
-        thmc._exact_diagonalize(torch.zeros((1, 4, 4)), "ph")
+    M = thmc.proposal_embedding(TL, tp, ts, thmc.Proposal(
+        ts.delta_re, ts.delta_im, *([None] * 10)))
+    w_ph, _, _ = thmc._exact_diagonalize(M, "ph")
+    w_qd, _, _ = thmc._exact_diagonalize(M, "qdwh")
+    np.testing.assert_allclose(_np(w_ph), _np(w_qd), atol=1e-10)
+    with pytest.raises(ValueError):
+        thmc._exact_diagonalize(M, "magma")
