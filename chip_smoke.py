@@ -34,7 +34,16 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    each), resumes it to six sweeps, and runs the untracked exact sweep at
    12×12; counts are reset before and read after each run and checked
    against the schedule, the CSVs, bins and health file are checked;
-7. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+7. drives the complex path through ``run_simulation`` at 24×24 (8 chains,
+   2 therm + 2 measurement sweeps, a transport pass per sweep), holds one
+   complex trajectory on the card against CPU float64 at 6×6 and measures
+   the card's complex64 ``eigh`` error by dimension, runs the vectorized
+   scan with the host float64 readout on the cold end of the production T
+   grid (``examples/T_scan_cold_host_24x24/scan_config.json``, cut to 2
+   points × 2 replicas and 8 sweeps), and the serial scan
+   (``batch_scan_T --mode serial``, complex path, 12×12, 2 points) and its
+   rerun, which skips both; counts are reset before and read after each;
+8. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -464,7 +473,9 @@ def main_path(dev, seed: int, power: str) -> dict:
 FAMILIES = (("rotation_s", "K1 rotation_s"), ("lorentz", "K2 lorentzian"),
             ("trsm", "triangular solve"), ("potrf", "cholesky"),
             ("syev", "eigh"), ("sytrd", "eigh"), ("stedc", "eigh"),
-            ("ormtr", "eigh"), ("gemm", "matmul"), ("gemv", "matmul"),
+            ("ormtr", "eigh"), ("hetrd", "eigh"), ("heev", "eigh"),
+            ("unmtr", "eigh"), ("fft", "fft"),
+            ("gemm", "matmul"), ("gemv", "matmul"),
             ("cutlass", "matmul"), ("xmma", "matmul"),
             ("index", "gather/scatter"), ("scatter", "gather/scatter"),
             ("gather", "gather/scatter"), ("reduce", "reduction"),
@@ -536,16 +547,63 @@ def profile_phase(dev, seed: int, power: str) -> None:
     def transport():
         return ensemble_transport_real(lat, spec, params, states)
 
-    seconds = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        transport()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+    seconds = _host_pass_seconds(transport)
     emit({"phase": "profile.transport", "pass_seconds": seconds,
           "median_seconds": float(np.median(seconds)),
           **_profile_summary(*_device_profile(transport)), "gpu": power})
+    profile_complex_phase(dev, seed, power)
+
+
+def _host_pass_seconds(fn, reps: int = 5) -> list:
+    """Host-timed seconds of ``reps`` calls, each ending in a synchronize."""
+    seconds = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def profile_complex_phase(dev, seed: int, power: str) -> None:
+    """The complex path at the main configuration (24×24, 8 chains at the
+    main path's temperatures, Nt = 20): three sweeps host-timed, then one
+    profiled; five transport passes host-timed, then one profiled."""
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        ensemble_transport,
+        init_ensemble,
+        run_segment,
+    )
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    lat, spec, _temps, params, _dt = main_config(dev)
+    nt = SIM["Nt_measure"]
+    dt = torch.tensor([calc_optimal_dt(b, PHYS["J"], PHYS["mass"], nt)
+                       for b in params.beta.tolist()], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    states = init_ensemble(lat, params, gen, N_CHAINS, n_imp=PHYS["n_imp"],
+                           device=dev)
+
+    def sweep():
+        nonlocal states
+        states, _ = run_segment(lat, params, states, 1, nt, dt,
+                                generator=gen)
+
+    sweep_s = _host_pass_seconds(sweep, 3)
+    emit({"phase": "profile.sweep_complex", "Nt": nt,
+          "sweep_seconds": sweep_s,
+          "traj_per_s": N_CHAINS / float(np.median(sweep_s)),
+          **_profile_summary(*_device_profile(sweep)), "gpu": power})
+
+    def transport():
+        return ensemble_transport(lat, spec, params, states)
+
+    seconds = _host_pass_seconds(transport)
+    emit({"phase": "profile.transport_complex", "pass_seconds": seconds,
+          "median_seconds": float(np.median(seconds)),
+          **_profile_summary(*_device_profile(transport)), "gpu": power})
+
 
 
 # --- the exact anchor: guarded PH solve vs the full eigh ---------------------
@@ -690,6 +748,13 @@ def _read(path: str) -> str:
         return f.read()
 
 
+def _csv_rows(path: str) -> tuple[str, np.ndarray]:
+    """(header, rows as floats) of a CSV the drivers write."""
+    lines = _read(path).splitlines()
+    return lines[0], np.array([[float(x) for x in ln.split(",")]
+                               for ln in lines[1:]])
+
+
 def _check_csvs(d: str, C: int, n_rows: int) -> int:
     """Header, row count and finite values of one point's CSVs.  A dH may
     be non-finite only on a rejected sweep (a diverged proposal, zeroed and
@@ -700,12 +765,12 @@ def _check_csvs(d: str, C: int, n_rows: int) -> int:
     diverged = 0
     for name, header in (("observables.csv", OBS_HEADER),
                          ("transport.csv", TRANS_HEADER)):
-        lines = _read(os.path.join(d, name)).splitlines()
-        check(lines[0] == header, f"{d}/{name}: header {lines[0]!r}")
-        check(len(lines) == 1 + n_rows * C, f"{d}/{name}: "
-              f"{len(lines) - 1} rows, expected {n_rows * C}")
-        vals = np.array([[float(x) for x in ln.split(",")]
-                         for ln in lines[1:]])
+        if C > 1:
+            header = "Sweep,Chain," + header.split(",", 1)[1]
+        got, vals = _csv_rows(os.path.join(d, name))
+        check(got == header, f"{d}/{name}: header {got!r}")
+        check(len(vals) == n_rows * C, f"{d}/{name}: "
+              f"{len(vals)} rows, expected {n_rows * C}")
         ok = np.isfinite(vals)
         if name == "observables.csv":
             i_acc, i_dH = header.split(",").index("Accepted"), \
@@ -827,6 +892,257 @@ def scan_phases(dev, power: str) -> dict:
             for name in launches}
 
 
+# --- the complex path and the host readout -----------------------------------
+
+def _counted(fn):
+    """(fn(), kernel launches during the call, wall seconds), the counts
+    reset just before and read just after."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+#: the complex path's run: the production width and couplings (the
+#: RunConfig defaults: β = 10, the spectral grid η = 8/N), 8 chains, a short
+#: fixed schedule at the production thermalization's Nt = 20 (at Nt = 6 a
+#: cold start's ΔH is ≈ 15 at this width, and nothing is accepted)
+SIM = dict(Lx=L_MAIN, Ly=L_MAIN, **PHYS, dtype="float32", path="complex",
+           n_chains=N_CHAINS, n_therm=2, n_measure=2, Nt_therm_init=NT,
+           Nt_measure=NT, measure_transport_freq=1, bin_size=1,
+           checkpoint_freq=0, verbose=False)
+
+
+def simulation_complex_phase(dev, power: str) -> dict:
+    """``run_simulation`` on the complex path at 24×24: every leapfrog step
+    one complex Hermitian eigh of (8, 1152, 1152), a transport pass per
+    measurement sweep (two K2 launches each), no K1."""
+    from dwavehmc_tpu_torch.drivers.simulation import run_simulation
+    from dwavehmc_tpu_torch.utils.config import RunConfig
+
+    cfg = RunConfig(**SIM, out_dir=os.path.join(REPO, "build", "sim_smoke",
+                                                "complex"))
+    out, launches, sec = _counted(lambda: run_simulation(cfg, device=dev))
+    spans = out["measure_seconds"]
+    n_pass = cfg.n_measure // cfg.measure_transport_freq
+    _, rows = _csv_rows(os.path.join(cfg.out_dir, "observables.csv"))
+    emit({"phase": "simulation.complex", "lattice": [cfg.Lx, cfg.Ly],
+          "chains": cfg.n_chains, "beta": cfg.beta, "Nt": cfg.Nt_measure,
+          "seconds": sec, "therm_seconds": out["therm_seconds"],
+          "measure_seconds": spans,
+          "traj_per_s_therm": cfg.n_chains * cfg.n_therm
+          / out["therm_seconds"],
+          "traj_per_s_measure": cfg.n_chains * cfg.n_measure / spans["hmc"],
+          "transport_seconds_per_pass": spans["transport"] / n_pass,
+          "acceptance": out["acceptance"],
+          "dH_median": float(np.median(rows[:, 3])),
+          "dH_min_max": [float(rows[:, 3].min()), float(rows[:, 3].max())],
+          "launches": launches, "gpu": power})
+    _check_csvs(cfg.out_dir, cfg.n_chains, cfg.n_measure)
+    check(launches["weighted_lorentzian_sum"] == 2 * n_pass,
+          f"simulation.complex: {launches['weighted_lorentzian_sum']} K2 "
+          f"launches, expected {2 * n_pass}")
+    check(launches["rotation_s_parts"] == 0,
+          "simulation.complex launched K1")
+    return launches
+
+
+def reference_complex_phase(dev, seed: int) -> None:
+    """One complex trajectory and a transport pass at 6×6 on the card
+    (float32/complex64, K2) against the same on the CPU (float64, plain
+    versions); and the card's complex64 ``eigh`` eigenvalue error by
+    dimension, raw and through ``symmetric_eigh``'s switch, beside the
+    CPU's complex64 error."""
+    from dwavehmc_tpu_torch.models.bdg import assemble_bdg, static_hamiltonian
+    from dwavehmc_tpu_torch.models.bdg_real import symmetric_eigh
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        ensemble_transport,
+        init_ensemble,
+        run_segment,
+    )
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    lat = LatticeSpec(6, 6)
+    spec = production_spec(lat)
+    betas = [10.0, 50.0]
+    g = torch.Generator().manual_seed(seed)
+    p64 = make_params(beta=betas, dtype=torch.float64, device="cpu", **PHYS)
+    s64 = init_ensemble(lat, p64, g, 2, dtype=torch.float64,
+                        n_imp=PHYS["n_imp"], device="cpu")
+    p32 = make_params(beta=betas, dtype=torch.float32, device=dev, **PHYS)
+    s32 = type(s64)(*(x.to(dev, torch.complex64 if x.is_complex()
+                           else torch.float32) for x in s64))
+    normals = torch.randn((1, 2, 2, lat.n_sites, 2), generator=g,
+                          dtype=torch.float64)
+    uniforms = torch.rand((1, 2), generator=g)
+    dt = [calc_optimal_dt(b, PHYS["J"], PHYS["mass"], 6) for b in betas]
+    tr64 = ensemble_transport(lat, spec, p64, s64)
+    tr32 = ensemble_transport(lat, spec, p32, s32)
+    rel = {name: float((getattr(tr32, name).double().cpu()
+                        - getattr(tr64, name)).norm()
+                       / getattr(tr64, name).norm())
+           for name in tr64._fields}
+    _, seg64 = run_segment(lat, p64, s64, 1, 6,
+                           torch.tensor(dt, dtype=torch.float64),
+                           normals=normals, uniforms=uniforms)
+    _, seg32 = run_segment(lat, p32, s32, 1, 6, torch.tensor(dt, device=dev),
+                           normals=normals, uniforms=uniforms)
+    dH64, dH32 = seg64.dH[0], seg32.dH[0].double().cpu()
+
+    eigh_err = {}
+    p = make_params(dtype=torch.float64, device="cpu", **PHYS)
+    for L in (6, 12, 16, 24):
+        lt = LatticeSpec(L, L)
+        dis = (torch.rand(1, lt.n_sites, generator=g, dtype=torch.float64)
+               < PHYS["n_imp"]).double()
+        d = 0.1 * (torch.rand(1, lt.n_sites, 2, generator=g,
+                              dtype=torch.complex128) - (0.5 + 0.5j))
+        H = assemble_bdg(lt, static_hamiltonian(lt, p.t, p.tp, p.mu, dis), d)
+        want = torch.linalg.eigvalsh(H)
+        H32 = H.to(torch.complex64)
+
+        def err(w):
+            return float((w.double().cpu() - want).abs().max())
+
+        eigh_err[2 * lt.n_sites] = {
+            "cpu_c64": err(torch.linalg.eigvalsh(H32)),
+            "card_c64_raw": err(torch.linalg.eigvalsh(H32.to(dev))),
+            "card_symmetric_eigh": err(symmetric_eigh(H32.to(dev))[0])}
+    emit({"phase": "reference.6x6.complex", "transport_rel_l2": rel,
+          "dH_cpu_f64": dH64.tolist(), "dH_gpu_f32": dH32.tolist(),
+          "eigh_complex64_err_by_dim": eigh_err})
+    for name, r in rel.items():
+        check(r <= 1e-3, f"reference complex {name}: rel L2 {r} > 1e-3")
+    check(bool(((dH32 - dH64).abs() <= 1e-2 + 1e-3 * dH64.abs()).all()),
+          f"reference complex dH: card {dH32.tolist()} vs CPU "
+          f"{dH64.tolist()}")
+    for dim, e in eigh_err.items():
+        check(e["card_symmetric_eigh"] <= max(2.0 * e["cpu_c64"], 2e-5),
+              f"complex eigh at dimension {dim}: {e}")
+
+
+def _cold_host_config(root: str):
+    """(RunConfig, T values, replicas) of the cold end of the production T
+    grid with the host readout, cut to its first and last point × 2
+    replicas, 1 anneal stage of 1 sweep, the probe window of therm and 2
+    measurement sweeps."""
+    from dwavehmc_tpu_torch.utils.config import RunConfig
+
+    saved = json.loads(_read(os.path.join(
+        REPO, "examples", "T_scan_cold_host_24x24", "scan_config.json")))
+    grid = saved.pop("values")
+    values = [grid[0], grid[-1]]
+    for k in ("scan_param", "replicas"):
+        saved.pop(k)
+    saved.update(anneal_stages=1, anneal_sweeps=1, n_therm=5,
+                 meas_probe_sweeps=0, n_measure=2, checkpoint_freq=0,
+                 resume=False, verbose=False, out_dir=root)
+    return RunConfig(**saved), values, 2
+
+
+def scan_host_readout_phase(dev, power: str) -> dict:
+    """``run_scan_vectorized`` with ``metropolis_readout="host"`` at 24×24:
+    the tracked leapfrog and the exact anchor on the card, each sweep's ΔH
+    from complex128 ``eigvalsh`` on the host (timed here by wrapping
+    ``ops/host_energy.potential_batch_np``)."""
+    from dwavehmc_tpu_torch.drivers.scan import run_scan_vectorized
+    from dwavehmc_tpu_torch.ops import host_energy
+
+    cfg, values, C = _cold_host_config(os.path.join(REPO, "build",
+                                                    "scan_smoke", "host"))
+    cfg.validate()
+    host = {"calls": 0, "seconds": 0.0}
+    inner = host_energy.potential_batch_np
+
+    def timed_potentials(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            host["calls"] += 1
+            host["seconds"] += time.perf_counter() - t0
+
+    host_energy.potential_batch_np = timed_potentials
+    try:
+        out, launches, sec = _counted(lambda: run_scan_vectorized(
+            cfg, values, scan_param="T", replicas=C, device=dev))
+    finally:
+        host_energy.potential_batch_np = inner
+    n_sweeps = cfg.anneal_sweeps * cfg.anneal_stages + cfg.n_therm \
+        + cfg.n_measure
+    k1_want = (expected_rotations(n_sweeps - cfg.n_measure, 1,
+                                  cfg.Nt_therm_init)
+               + expected_rotations(cfg.n_measure, 1, cfg.Nt_measure))
+    swept = sum(out["stage_seconds"][k] for k in ("anneal", "therm",
+                                                  "measure"))
+    health = json.loads(_read(os.path.join(cfg.out_dir,
+                                           "therm_health.json")))
+    acc = [h["measurement"]["mean_acc"] for h in health.values()]
+    diverged = sum(_check_csvs(d, C, cfg.n_measure) for d in out["dirs"])
+    emit({"phase": "scan.host_readout", "lattice": [cfg.Lx, cfg.Ly],
+          "T": values, "replicas": C, "chains": out["chains"],
+          "exact_solver": cfg.exact_solver, "seconds": sec,
+          "stage_seconds": out["stage_seconds"],
+          "stage_sweeps": out["stage_sweeps"],
+          "sweep_seconds": swept / n_sweeps,
+          "host_readout_calls": host["calls"],
+          "host_readout_seconds": host["seconds"],
+          "host_readout_seconds_per_call": host["seconds"] / host["calls"],
+          "device_seconds_per_sweep": (swept - host["seconds"]) / n_sweeps,
+          "measurement_acceptance": float(np.mean(acc)),
+          "acceptance_by_point": acc, "rejected_nonfinite_dH": diverged,
+          "launches": launches, "k1_expected": k1_want, "gpu": power})
+    check(host["calls"] >= n_sweeps, f"scan.host_readout: {host['calls']} "
+          f"host readouts for {n_sweeps} sweeps")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"scan.host_readout: {launches['rotation_s_parts']} K1 launches, "
+          f"the schedule implies {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 2 * cfg.n_measure,
+          f"scan.host_readout: {launches['weighted_lorentzian_sum']} K2 "
+          f"launches, expected 2 per transport pass")
+    return launches
+
+
+def scan_serial_phase(dev, power: str) -> dict:
+    """``batch_scan_T --mode serial`` on the complex path at 12×12, two
+    points, then the same command with ``--resume true``, which skips
+    both."""
+    from dwavehmc_tpu_torch.drivers import batch_scan_T
+
+    root = os.path.join(REPO, "build", "scan_smoke", "serial")
+    argv = ["--mode", "serial", "--device", dev.type, "--path", "complex",
+            "--Lx", "12", "--Ly", "12", "--n_T", "2", "--T_min", "0.01",
+            "--T_max", "1", "--n_therm", "2", "--n_measure", "2",
+            "--Nt_therm_init", str(NT), "--Nt_measure", str(NT),
+            "--bin_size", "1",
+            "--checkpoint_freq", "0", "--verbose", "false",
+            "--no-summarize", "--out_dir", root]
+    out, launches, sec = _counted(lambda: batch_scan_T.main(argv))
+    out2, launches2, sec2 = _counted(
+        lambda: batch_scan_T.main(argv + ["--resume", "true"]))
+    emit({"phase": "scan.serial", "lattice": [12, 12],
+          "points": [os.path.basename(r["out_dir"]) for r in out],
+          "seconds": sec, "acceptance": [r["acceptance"] for r in out],
+          "launches": launches, "rerun_seconds": sec2,
+          "rerun_skipped": [bool(r.get("skipped")) for r in out2],
+          "rerun_launches": launches2, "gpu": power})
+    for r in out:
+        _check_csvs(r["out_dir"], 1, 2)
+    check(launches["weighted_lorentzian_sum"] == 2 * 2 * len(out),
+          f"scan.serial: {launches['weighted_lorentzian_sum']} K2 launches")
+    check(launches["rotation_s_parts"] == 0, "scan.serial launched K1")
+    check(all(r.get("skipped") for r in out2),
+          "scan.serial: the rerun did not skip the finished points")
+    check(sum(launches2.values()) == 0, "scan.serial: the rerun launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -859,6 +1175,21 @@ def main(argv=None) -> int:
     for name, n in scan_launches.items():
         check(n > 0, f"kernel {name} was not launched by the scan")
         launches[name] += n
+    reference_complex_phase(dev, args.seed)
+    # path B (complex) launches K2 only; path A (host readout) both kernels
+    for phase, path_kernels in ((simulation_complex_phase,
+                                 ("weighted_lorentzian_sum",)),
+                                (scan_host_readout_phase,
+                                 ("rotation_s_parts",
+                                  "weighted_lorentzian_sum")),
+                                (scan_serial_phase,
+                                 ("weighted_lorentzian_sum",))):
+        counts = phase(dev, power)
+        for name in path_kernels:
+            check(counts[name] > 0, f"kernel {name} was not launched by "
+                  f"{phase.__name__}")
+        for name, n in counts.items():
+            launches[name] += n
     profile_phase(dev, args.seed, power)
 
     rows = [

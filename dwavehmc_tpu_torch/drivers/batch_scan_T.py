@@ -8,8 +8,9 @@ W=1, n_imp=0.05, J=0.8; 24 log-spaced T ∈ [1e−4, 1e3]; η=8/N, Δω=0.2η,
 ω_max=4; 20 therm + 100 measure sweeps, Nt_therm=20, Nt_meas=6, transport
 every sweep, bin 10, a 10-stage β-ladder anneal.  Every ``RunConfig`` field
 is a flag.  ``--mode vectorized`` runs the whole grid as one ensemble;
-``--mode serial`` (one run per point) needs the complex path and is not
-ported.  ``--summarize`` (default on) writes ``summary_all.csv``.
+``--mode serial`` runs one ``run_simulation`` per point (with ``--resume
+true`` a finished point is skipped).  ``--summarize`` (default on) writes
+``summary_all.csv``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import argparse
 import sys
 
 from .postprocess import summarize_scan
-from .scan import default_T_grid, run_scan_vectorized
+from .scan import default_T_grid, run_scan_serial, run_scan_vectorized
 from ..utils.config import RunConfig, add_cli_args, from_namespace
 
 
@@ -38,23 +39,24 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--T_min", type=float, default=1e-4)
     p.add_argument("--T_max", type=float, default=1e3)
     p.add_argument("--replicas", type=int, default=None,
-                   help="chains per T point")
+                   help="chains per T point (vectorized mode)")
     p.add_argument("--summarize", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
 
-def main(argv=None) -> dict:
+def main(argv=None):
+    """The vectorized scan's result dict, or the serial scan's list of
+    per-point results."""
     ns = parser().parse_args(argv)
     cfg = from_namespace(ns)
-    if ns.mode == "serial":
-        raise NotImplementedError(
-            "--mode serial runs one run_simulation per point on the complex "
-            "path, which is not ported yet (ROADMAP Queue 1 (d))")
     Ts = default_T_grid(ns.n_T, ns.T_min, ns.T_max)
-    out = run_scan_vectorized(cfg, Ts, scan_param="T", replicas=ns.replicas,
-                              device=ns.device)
+    if ns.mode == "serial":
+        out = run_scan_serial(cfg, Ts, scan_param="T", device=ns.device)
+    else:
+        out = run_scan_vectorized(cfg, Ts, scan_param="T",
+                                  replicas=ns.replicas, device=ns.device)
     if ns.summarize:
         print("summary:", summarize_scan(cfg.out_dir, "T_", "T"))
     return out

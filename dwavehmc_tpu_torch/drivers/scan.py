@@ -1,22 +1,25 @@
-"""Temperature/β scans, the production workload (port of the
-vectorized half of ``dwavehmc_tpu/drivers/scan.py``).
+"""Temperature/β scans, the production workload (port of
+``dwavehmc_tpu/drivers/scan.py``).
 
-``run_scan_vectorized`` runs every (grid point × replica) chain as one row
-of a single ensemble with per-chain (β, dt) on one device, then slices the
-results back into the JAX package's per-point directory layout
-(``<scan_param>_<value>/{observables.csv, transport.csv,
-spectra_bins.npz}`` plus ``scan.log``, ``scan_config.json``,
-``therm_health.json`` and ``scan_checkpoint.npz`` under the root), so the
-same post-processing reads either package's scans.
+ * ``run_scan_serial`` — one full ``run_simulation`` (adaptive
+   thermalization included) per grid point, each into its own
+   ``<scan_param>_<value>/`` directory; with ``cfg.resume`` a finished point
+   is skipped and a partial one resumes.
+ * ``run_scan_vectorized`` — every (grid point × replica) chain as one row
+   of a single ensemble with per-chain (β, dt) on one device, the results
+   sliced back into the same per-point layout
+   (``<scan_param>_<value>/{observables.csv, transport.csv,
+   spectra_bins.npz}`` plus ``scan.log``, ``scan_config.json``,
+   ``therm_health.json`` and ``scan_checkpoint.npz`` under the root).
 
-Not ported here: ``run_scan_serial`` (it needs ``run_simulation`` on the
-complex path, ROADMAP Queue 1 (d)), and the JAX scan's padding of the
-ensemble to a device multiple and its device mesh: one card runs the whole
-ensemble, so nothing is padded.
+Either package's post-processing reads either package's scans.  Not ported
+here: the JAX scan's padding of the ensemble to a device multiple and its
+device mesh: one card runs the whole ensemble, so nothing is padded.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -26,12 +29,6 @@ import torch
 
 from ..models.params import ModelParams
 from ..ops import ph_eigh
-from ..parallel.ensemble import (
-    ensemble_transport_real,
-    init_ensemble_real,
-    run_segment_real,
-    run_segment_tracked,
-)
 from ..sampler.hmc import calc_optimal_dt
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.config import RunConfig
@@ -44,6 +41,7 @@ from ..utils.io import (
     TeeLogger,
     write_json,
 )
+from .simulation import run_simulation, segment_functions
 
 
 def default_T_grid(n=24, lo=1e-4, hi=1e3) -> np.ndarray:
@@ -54,6 +52,47 @@ def default_T_grid(n=24, lo=1e-4, hi=1e3) -> np.ndarray:
 def default_beta_grid(n=24, lo=0.01, hi=1e5) -> np.ndarray:
     """Log-spaced β grid."""
     return np.logspace(np.log10(lo), np.log10(hi), n)
+
+
+def _point_complete(out_dir: str, n_measure: int) -> bool:
+    """True when a scan point's checkpoint says all measurement sweeps ran
+    (``run_simulation`` writes a final checkpoint at ``n_measure``)."""
+    p = os.path.join(out_dir, "checkpoint.npz")
+    if not os.path.exists(p):
+        return False
+    try:
+        with np.load(p) as z:
+            return int(z["sweep_idx"]) >= n_measure
+    except (OSError, ValueError, KeyError):   # unreadable ⇒ run it again
+        return False
+
+
+def run_scan_serial(cfg: RunConfig, values, *, scan_param: str = "T",
+                    out_root: str | None = None,
+                    device="cuda") -> list[dict]:
+    """One ``run_simulation`` per grid value.  ``scan_param``: "T" (β = 1/T)
+    or any RunConfig field name (e.g. "beta", "J", "W").
+
+    With ``cfg.resume``, grid points whose checkpoint already covers all
+    ``n_measure`` sweeps are skipped and partially done points resume
+    mid-run."""
+    out_root = out_root or cfg.out_dir
+    os.makedirs(out_root, exist_ok=True)
+    results = []
+    for v in values:
+        sub = dataclasses.replace(cfg)
+        if scan_param == "T":
+            sub.beta = 1.0 / float(v)
+        else:
+            setattr(sub, scan_param, float(v))
+        sub.out_dir = os.path.join(out_root, f"{scan_param}_{float(v):.6g}")
+        if cfg.resume and _point_complete(sub.out_dir, sub.n_measure):
+            results.append({"acceptance": float("nan"),
+                            "sweeps": sub.n_measure,
+                            "out_dir": sub.out_dir, "skipped": True})
+            continue
+        results.append(run_simulation(sub, device=device))
+    return results
 
 
 def _broadcast_params(base: ModelParams, n: int, **per_chain) -> ModelParams:
@@ -168,7 +207,10 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     loop: one CSV row per chain and sweep, a transport pass and a spectra
     bin entry every ``measure_transport_freq`` sweeps, a checkpoint every
     ``checkpoint_freq``.  Thermalization and anneal anchor every sweep;
-    ``cfg.anchor_every`` applies to measurement.
+    ``cfg.anchor_every`` applies to measurement.  The compute path follows
+    ``cfg`` (``simulation.segment_functions``): the tracked or untracked
+    real path, the tracked path with the host float64 Metropolis readout
+    (an exact anchor every sweep), or the complex path.
 
     Random draws come from one ``torch.Generator`` on ``device`` seeded
     with ``cfg.seed``.  Resume (``cfg.resume``): ``scan_checkpoint.npz``
@@ -213,7 +255,7 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         f"{n_run} chains on 1 device ({dev_name}); "
         f"lattice {cfg.Lx}x{cfg.Ly}")
 
-    cfg.resolved_path()                 # "real": the only ported path
+    path = cfg.resolved_path()
     guard0 = dict(ph_eigh.GUARD)
     stage_seconds: dict[str, float] = {}
     stage_sweeps = dict.fromkeys(("init", "anneal", "therm", "probe",
@@ -227,22 +269,15 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         stage_seconds[name] = now - t_stage[0]
         t_stage[0] = now
 
+    # the host readout keeps one potential cache across every segment of
+    # this run; a resume recomputes it from the loaded states
+    seg_fn, init_fn, transport_fn = segment_functions(cfg, lat, gen)
+
     def run_seg(p, s, n, Nt, dts, measure, anchor_every=None):
         """One segment: the states, the SegmentResult, and its accepts and
         dH as numpy arrays (n, chains)."""
         dt = torch.as_tensor(np.asarray(dts), dtype=dtype, device=dev)
-        if cfg.eigh_mode == "tracked":
-            s, seg = run_segment_tracked(
-                lat, p, s, n, Nt, dt, measure, cfg.tracked_iters,
-                anchor_every if anchor_every is not None
-                else cfg.anchor_every,
-                cfg.refine_iters, cfg.polish_iters, cfg.resolved_ns_steps(),
-                cfg.rot_torch_dtype(), cfg.exact_solver,
-                cfg.polish_precision, cfg.polish_correction, cfg.rot_scheme,
-                generator=gen)
-        else:
-            s, seg = run_segment_real(lat, p, s, n, Nt, dt, measure=measure,
-                                      eigh_mode=cfg.eigh_mode, generator=gen)
+        s, seg = seg_fn(p, s, n, Nt, dt, measure, anchor_every=anchor_every)
         return s, seg, _np(seg.accepted), _np(seg.dH)
 
     # --- resume: restore ensemble + measurement progress -----------------
@@ -266,15 +301,14 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                     break
         if ok:
             states, n_done0, ckpt_extra = load_checkpoint(
-                ckpt_path, lat, base, generator=gen, device=dev)
+                ckpt_path, lat, base, state_path=path, generator=gen,
+                device=dev)
             dt_m_saved = ckpt_extra.get("dt_m")
             log(f"Resumed scan at measurement sweep {n_done0} "
                 f"from {ckpt_path}.")
     if n_done0 == 0:
-        states = init_ensemble_real(lat, base, gen, n_run, dtype=dtype,
-                                    n_imp=cfg.n_imp,
-                                    exact_solver=cfg.exact_solver,
-                                    device=dev)
+        states = init_fn(lat, base, gen, n_run, dtype=dtype,
+                         n_imp=cfg.n_imp, device=dev)
     stage_done("init")
 
     # --- β-ladder annealing (warm start) --------------------------------
@@ -528,7 +562,7 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         n_done += n
 
         if n_done % freq == 0:
-            res = ensemble_transport_real(lat, spec, params, states)
+            res = transport_fn(lat, spec, params, states)
             rho = _np(res.superfluid_stiffness)
             dc = _np(res.dc_conductivity)
             oc = _np(res.optical_conductivity)

@@ -1,15 +1,18 @@
-"""Bogoliubov–de Gennes Hamiltonian pieces (port of the parts of
-``dwavehmc_tpu/models/bdg.py`` that the real-pair path uses).
+"""Bogoliubov–de Gennes Hamiltonian assembly (port of
+``dwavehmc_tpu/models/bdg.py``), batched over a leading chain dimension.
 
-Conventions (every sign is physics):
+H = H_static(disorder) + P(Δ), the pairing in the off-diagonal Nambu
+blocks.  Conventions (every sign is physics):
  * particle block     h_ij = −t (NN) − t' (NNN) + (w_i − μ) δ_ij
  * hole block         −h* = −h  (h real)
- * pairing block      TR[i, j+N] = TR[j, i+N] = Δ_ij / 2  for +x,+y bonds
+ * pairing block      TR[i, j+N] = TR[j, i+N] = Δ_ij / 2  for +x,+y bonds,
+                      bottom-left TR†
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -70,3 +73,53 @@ def static_hamiltonian(lat: LatticeSpec, t, tp, mu,
     H[:, :N, :N] = h
     H[:, N:, N:] = -h
     return H
+
+
+@functools.lru_cache(maxsize=None)
+def _pairing_tensors(lat: LatticeSpec, device: torch.device):
+    return tuple(torch.as_tensor(a, dtype=torch.long, device=device)
+                 for a in pairing_scatter_indices(lat))
+
+
+def _scatter_add(M: torch.Tensor, rows, cols, vals: torch.Tensor):
+    """M[b, rows, cols] += vals[b] for every chain b, accumulating
+    duplicates (in place), as the JAX ``.at[].add`` does."""
+    B = vals.shape[0]
+    b = torch.arange(B, device=vals.device)[:, None].expand_as(vals)
+    M.index_put_((b, rows.expand_as(vals), cols.expand_as(vals)), vals,
+                 accumulate=True)
+    return M
+
+
+def pairing_block(lat: LatticeSpec, delta: torch.Tensor) -> torch.Tensor:
+    """Top-right (B, N, N) Nambu block TR(Δ) from ``delta`` (B, N, 2):
+    column 0 the +x bond, column 1 the +y bond; one scatter-add."""
+    rows, cols = _pairing_tensors(lat, delta.device)
+    half = 0.5 * delta
+    vals = torch.cat([half[..., 0], half[..., 0], half[..., 1],
+                      half[..., 1]], dim=-1)
+    N = lat.n_sites
+    TR = torch.zeros((delta.shape[0], N, N), dtype=delta.dtype,
+                     device=delta.device)
+    return _scatter_add(TR, rows, cols, vals)
+
+
+def assemble_bdg(lat: LatticeSpec, H_static: torch.Tensor,
+                 delta: torch.Tensor) -> torch.Tensor:
+    """Full Hermitian H_BdG = H_static + [[0, TR], [TR†, 0]], (B, 2N, 2N)
+    in the complex dtype of ``delta``."""
+    N = lat.n_sites
+    TR = pairing_block(lat, delta)
+    H = H_static.to(delta.dtype, copy=True)
+    H[:, :N, N:] += TR
+    H[:, N:, :N] += TR.conj().mT
+    return H
+
+
+def diagonalize(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hermitian eigendecomposition (ascending) of a (B, 2N, 2N) batch.
+    The implementation is chosen by ``DWAVEHMC_EIGH_IMPL``, as in the JAX
+    package: "complex" (default) or "real_embedding" (``ops/eigh.py``)."""
+    from ..ops.eigh import get_eigh
+
+    return get_eigh(os.environ.get("DWAVEHMC_EIGH_IMPL", "complex"))(H)

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from .bdg import pairing_scatter_indices, static_hamiltonian
+from .bdg import _pairing_tensors, _scatter_add, static_hamiltonian
 from .lattice import LatticeSpec, neighbor_tables
 
 
@@ -79,22 +79,6 @@ def _embedding_tensors(lat: LatticeSpec, dtype: torch.dtype,
     as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)  # noqa: E731
     return (as_long(rows), as_long(cols),
             torch.as_tensor(signs, dtype=dtype, device=device), as_long(src))
-
-
-@functools.lru_cache(maxsize=None)
-def _pairing_tensors(lat: LatticeSpec, device: torch.device):
-    return tuple(torch.as_tensor(a, dtype=torch.long, device=device)
-                 for a in pairing_scatter_indices(lat))
-
-
-def _scatter_add(M: torch.Tensor, rows, cols, vals: torch.Tensor):
-    """M[b, rows, cols] += vals[b] for every chain b, accumulating
-    duplicates (in place)."""
-    B = vals.shape[0]
-    b = torch.arange(B, device=vals.device)[:, None].expand_as(vals)
-    M.index_put_((b, rows.expand_as(vals), cols.expand_as(vals)), vals,
-                 accumulate=True)
-    return M
 
 
 def static_embedding(lat: LatticeSpec, t, tp, mu,
@@ -152,19 +136,25 @@ def assemble_parts(lat: LatticeSpec, Hs_real: torch.Tensor,
     return Hr, Hi
 
 
+#: single-precision dtypes ``symmetric_eigh`` widens for small matrices
+_WIDER = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
 def symmetric_eigh(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``torch.linalg.eigh`` of a batch of real symmetric matrices, with
-    float32 accuracy on the card.
+    """``torch.linalg.eigh`` of a batch of real symmetric or complex
+    Hermitian matrices, with single-precision accuracy on the card.
 
     On CUDA, PyTorch sends float32 matrices of dimension 32–512 to
     cuSOLVER's Jacobi solver, whose eigenvalues were measured 25× less
     accurate than the CPU's (2.2e-4 vs 8.8e-6 at dimension 144 on an H100)
-    — enough to move ΔH by 0.1 at β = 50.  Those matrices are diagonalized
-    in float64 and cast back; larger ones go to the divide-and-conquer
-    solver in float32."""
-    if A.is_cuda and A.dtype == torch.float32 and A.shape[-1] <= 512:
-        w, V = torch.linalg.eigh(A.double())
-        return w.float(), V.float()
+    — enough to move ΔH by 0.1 at β = 50.  Single-precision matrices
+    (float32 and complex64) of dimension ≤ 512 are diagonalized in double
+    precision and cast back; larger ones go to the divide-and-conquer
+    solver as they are."""
+    wide = _WIDER.get(A.dtype)
+    if A.is_cuda and wide is not None and A.shape[-1] <= 512:
+        w, V = torch.linalg.eigh(A.to(wide))
+        return w.float(), V.to(A.dtype)
     return torch.linalg.eigh(A)
 
 

@@ -61,6 +61,21 @@ class ModelParams(NamedTuple):
     mass: torch.Tensor
 
 
+class HMCState(NamedTuple):
+    """Complex-path Markov state of B chains.  (The JAX state's PRNG key
+    has no counterpart: draws come from a ``torch.Generator``.)"""
+
+    delta: torch.Tensor      # (B, N, 2) complex — bond fields on +x, +y
+    pi: torch.Tensor         # (B, N, 2) complex — conjugate momenta
+    disorder: torch.Tensor   # (B, N) real — site potential w_i ∈ {0, W}
+    evals: torch.Tensor      # (B, 2N) real, ascending
+    evecs: torch.Tensor      # (B, 2N, 2N) complex, eigenvectors as columns
+
+
+def complex_dtype_of(real_dtype: torch.dtype) -> torch.dtype:
+    return torch.complex128 if real_dtype == torch.float64 else torch.complex64
+
+
 def chain_view(x: torch.Tensor, ndim: int) -> torch.Tensor:
     """``x`` shaped to broadcast against a ``(B, ...)`` tensor of ``ndim``
     dims: a per-chain ``(B,)`` tensor becomes ``(B, 1, ..., 1)``; a 0-d

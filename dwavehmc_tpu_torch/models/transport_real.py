@@ -19,6 +19,7 @@ from .lattice import LatticeSpec, antinodal_phases, neighbor_tables
 from .params import ModelParams, SpectralSpec, chain_view
 from .transport import (
     SpectrumResult,
+    _const,
     current_patterns,
     dc_conductivity,
     lorentzian,
@@ -34,10 +35,6 @@ def dft_matrices(L: int) -> tuple[np.ndarray, np.ndarray]:
     x = np.arange(L)[None, :]
     ang = 2.0 * np.pi * k * x / L
     return np.cos(ang), np.sin(ang)
-
-
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
 def current_pattern_matrix(lat: LatticeSpec, t, tp):

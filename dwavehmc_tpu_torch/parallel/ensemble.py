@@ -1,6 +1,8 @@
-"""Ensemble runner, real-pair path (port of the real-pair half of
-``dwavehmc_tpu/parallel/ensemble.py``): the tracked production segment and
-the untracked ``run_segment_real``.
+"""Ensemble runner (port of ``dwavehmc_tpu/parallel/ensemble.py`` without
+its device mesh): the complex path (``init_ensemble``, ``run_segment``,
+``ensemble_transport``), and on the real-pair path the tracked production
+segment, the tracked segment with the host float64 Metropolis readout
+(``run_segment_hostacc``) and the untracked ``run_segment_real``.
 
 Chains are the leading dimension of every tensor, so one call of each
 function advances the whole ensemble.  The JAX package splits a tracked
@@ -14,18 +16,22 @@ eigenpairs it hands to transport are exact.
 
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.bdg_real import assemble_embedding, static_embedding
 from ..models.lattice import LatticeSpec
-from ..models.observables import ObservablesResult
+from ..models.observables import ObservablesResult, measure_observables
 from ..models.observables_real import measure_observables_real
-from ..models.params import ModelParams, SpectralSpec
-from ..models.transport import SpectrumResult
+from ..models.params import HMCState, ModelParams, SpectralSpec
+from ..models.transport import SpectrumResult, measure_transport_and_spectra
 from ..models.transport_real import measure_transport_and_spectra_real
+from ..ops import host_energy
 from ..ops.ph_eigh import diagonalize_embedding_ph_guarded
+from ..sampler.hmc import SweepInfo, hmc_sweep, init_chain_state
 from ..sampler.hmc_real import (
     HMCStateReal,
     _exact_diagonalize,
@@ -44,6 +50,54 @@ class SegmentResult(NamedTuple):
     accepted: torch.Tensor
     dH: torch.Tensor
     observables: ObservablesResult | None
+
+
+def init_ensemble(lat: LatticeSpec, params: ModelParams,
+                  generator: torch.Generator | None, n_chains: int, *,
+                  dtype=torch.float32, n_imp: float = 0.0, delta0=None,
+                  disorder=None, device="cuda") -> HMCState:
+    """``n_chains`` complex-path chains, each with its own disorder
+    realization and Δ start, drawn from ``generator`` unless given."""
+    return init_chain_state(lat, params, n_chains, generator=generator,
+                            dtype=dtype, n_imp=n_imp, delta0=delta0,
+                            disorder=disorder, device=device)
+
+
+def ensemble_sweep(lat: LatticeSpec, params: ModelParams, states: HMCState,
+                   Nt: int, dt, *, generator: torch.Generator | None = None,
+                   normals=None, uniforms=None
+                   ) -> tuple[HMCState, SweepInfo]:
+    """One complex-path HMC sweep on every chain: ``params`` and ``dt`` are
+    0-d or per-chain (B,)."""
+    return hmc_sweep(lat, params, states, Nt, dt, normals=normals,
+                     uniforms=uniforms, generator=generator)
+
+
+def run_segment(lat: LatticeSpec, params: ModelParams, states: HMCState,
+                n_sweeps: int, Nt: int, dt, *, measure: bool = True,
+                generator: torch.Generator | None = None,
+                normals=None, uniforms=None
+                ) -> tuple[HMCState, SegmentResult]:
+    """``n_sweeps`` complex-path sweeps over the ensemble; draws as in
+    ``run_segment_tracked``."""
+    accs, dHs, obss = [], [], []
+    for i in range(n_sweeps):
+        n, u = _sweep_draws(normals, uniforms, i)
+        states, info = ensemble_sweep(lat, params, states, Nt, dt,
+                                      generator=generator, normals=n,
+                                      uniforms=u)
+        accs.append(info.accepted)
+        dHs.append(info.dH)
+        if measure:
+            obss.append(measure_observables(lat, params, states))
+    return states, _segment_result(accs, dHs, obss, measure)
+
+
+def ensemble_transport(lat: LatticeSpec, spec: SpectralSpec,
+                       params: ModelParams,
+                       states: HMCState) -> SpectrumResult:
+    """Complex-path heavy measurement on every chain."""
+    return measure_transport_and_spectra(lat, spec, params, states)
 
 
 def _batch_eigs(M: torch.Tensor, exact_solver: str):
@@ -163,6 +217,103 @@ def run_segment_real(lat: LatticeSpec, params: ModelParams,
         if measure:
             obss.append(measure_observables_real(lat, params, states))
     return states, _segment_result(accs, dHs, obss, measure)
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _hostacc_fingerprint(params: ModelParams, disorder, delta_re,
+                         delta_im) -> str:
+    """Identity and state fingerprint of the host readout's potential
+    cache (numpy inputs).
+
+    Disorder alone is not enough: on a clean lattice every equal-sized
+    chain subset has the same all-zeros disorder, and the scan's bucketed
+    thermalization hands different subsets, at different β, through one
+    cache.  So the Δ bytes and every per-chain coupling are hashed too, as
+    in the JAX package; all are stable across back-to-back segments of the
+    same chains, so the cache still carries over."""
+    h = hashlib.sha1()
+    h.update(b"ax0" if params.beta.ndim == 1 else b"axN")
+    for a in (disorder, delta_re, delta_im):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for leaf in (params.beta, params.J, params.t, params.tp, params.mu,
+                 params.mass):
+        h.update(_np(leaf).astype(np.float64).tobytes())
+    return h.hexdigest()
+
+
+def run_segment_hostacc(lat: LatticeSpec, params: ModelParams,
+                        states: HMCStateReal, n_sweeps: int, Nt: int, dt, *,
+                        measure: bool = True, tracked_iters: int = 6,
+                        ns_steps: int = 2, rot_dtype=None,
+                        exact_solver: str = "qdwh", pot_cache=None,
+                        rot_scheme: str = "ns",
+                        generator: torch.Generator | None = None,
+                        normals=None, uniforms=None
+                        ) -> tuple[HMCStateReal, SegmentResult, dict]:
+    """Tracked segment with the host float64 Metropolis readout
+    (``ops/host_energy.py``), for β past the float32 wall (β ≳ 3e3).
+
+    Per sweep: the tracked leapfrog (no endpoint refine or polish) runs on
+    the device; the endpoint (Δ, π) comes to the host, which evaluates the
+    exact float64 H (complex128 ``eigvalsh`` per chain) and hands the ΔH
+    back to ``tracked_accept``.  The exact anchor (``exact_solver``; "ph"
+    is the guarded PH solve of the batch) still runs on the device every
+    sweep, so the carried eigenpairs stay anchor-grade for forces,
+    observables and transport.
+
+    ``pot_cache`` (a dict) holds the current state's potentials and a
+    fingerprint of the chains' identity and state
+    (``_hostacc_fingerprint``); it is refreshed on accept, re-fingerprinted
+    to the final state on return, and recomputed when the fingerprint does
+    not match.  Pass the returned dict back in across segments.  Draws as
+    in ``run_segment_tracked``.  Returns (states, SegmentResult,
+    pot_cache); the recorded ΔH is the host's, in float32."""
+    disorder = _np(states.disorder)
+    b = disorder.shape[0]
+    mass = host_energy.mass_array_np(params, b)
+    dre0, dim0 = _np(states.delta_re), _np(states.delta_im)
+    fp = _hostacc_fingerprint(params, disorder, dre0, dim0)
+    if pot_cache is None:
+        pot_cache = {}
+    if pot_cache.get("fp") != fp:
+        pot_cache = {"fp": fp, "pot": host_energy.potential_batch_np(
+            lat, params, disorder, dre0, dim0)}
+
+    accs, dHs, obss = [], [], []
+    for i in range(n_sweeps):
+        n, u = _sweep_draws(normals, uniforms, i)
+        prop = tracked_leapfrog(lat, params, states, Nt, dt, tracked_iters,
+                                0, 0, ns_steps, rot_dtype,
+                                rot_scheme=rot_scheme, normals=n, uniforms=u,
+                                generator=generator)
+        dre, dim_, pre, pim, pi0r, pi0i = (_np(x) for x in prop[:6])
+        pot_new = host_energy.potential_batch_np(lat, params, disorder, dre,
+                                                 dim_)
+        dH = ((host_energy.kinetic_energy_np(pre, pim, mass) + pot_new)
+              - (host_energy.kinetic_energy_np(pi0r, pi0i, mass)
+                 + pot_cache["pot"]))
+        finite = np.isfinite(dH) & np.isfinite(pot_new)
+        eig_new = _batch_eigs(proposal_embedding(lat, params, states, prop),
+                              exact_solver)
+        states, info = tracked_accept(lat, params, states, prop,
+                                      dH_host=dH.astype(np.float32),
+                                      finite_host=finite, eig_new=eig_new)
+        pot_cache["pot"] = np.where(_np(info.accepted), pot_new,
+                                    pot_cache["pot"])
+        accs.append(info.accepted)
+        dHs.append(info.dH)
+        if measure:
+            obss.append(measure_observables_real(lat, params, states))
+
+    # the fingerprint of the final state, so the same dict hits on the next
+    # segment of these chains
+    pot_cache["fp"] = _hostacc_fingerprint(params, disorder,
+                                           _np(states.delta_re),
+                                           _np(states.delta_im))
+    return states, _segment_result(accs, dHs, obss, measure), pot_cache
 
 
 def _segment_result(accs, dHs, obss, measure: bool) -> SegmentResult:

@@ -32,7 +32,7 @@ from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
 from ..ops.tracked_eigh import tracked_eigh_nofallback
 from ..utils.device import resolve_device
-from .hmc import SweepInfo
+from .hmc import SweepInfo, _finite_or_zero, sweep_draws
 
 
 class HMCStateReal(NamedTuple):
@@ -136,12 +136,6 @@ def _energy_terms(delta_re, delta_im, pi_re, pi_im, evals, beta, J, mass):
     return kin + bos + fer
 
 
-def _finite_or_zero(x):
-    """NaN/Inf guard ahead of eigh: a diverged trajectory is zeroed here and
-    rejected by the accept step's finiteness check."""
-    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-
-
 def _all_finite(*xs):
     out = None
     for x in xs:
@@ -150,35 +144,16 @@ def _all_finite(*xs):
     return out
 
 
-def draw_momenta(generator: torch.Generator, shape, dtype,
-                 device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Standard normals (B, 2, N, 2) and float32 accept uniforms (B,) for
-    one sweep, drawn in that order."""
-    gdev = generator.device
-    normals = torch.randn(shape, generator=generator, dtype=dtype,
-                          device=gdev).to(device)
-    uniforms = torch.rand((shape[0],), generator=generator,
-                          dtype=torch.float32, device=gdev).to(device)
-    return normals, uniforms
-
-
 def _refresh(params: ModelParams, state: HMCStateReal, normals, uniforms,
              generator: torch.Generator | None, caller: str):
     """(π_re0, π_im0, accept uniforms) of one sweep: the given standard
     normals (B, 2, N, 2) scaled by √m and uniforms (B,), each drawn from
     ``generator`` when not given."""
     rdt = state.evals.dtype
-    dev = state.evals.device
-    if normals is None or uniforms is None:
-        if generator is None:
-            raise ValueError(f"{caller} needs generator= or the draws")
-        n_draw, u_draw = draw_momenta(
-            generator, (state.delta_re.shape[0], 2)
-            + tuple(state.delta_re.shape[1:]), rdt, dev)
-        normals = n_draw if normals is None else normals
-        uniforms = u_draw if uniforms is None else uniforms
-    normals = torch.as_tensor(normals, device=dev).to(rdt)
-    uniforms = torch.as_tensor(uniforms, device=dev).to(torch.float32)
+    normals, uniforms = sweep_draws(
+        normals, uniforms, generator,
+        (state.delta_re.shape[0], 2) + tuple(state.delta_re.shape[1:]), rdt,
+        state.evals.device, caller)
     scale = chain_view(torch.sqrt(params.mass).to(rdt), 3)
     return normals[:, 0] * scale, normals[:, 1] * scale, uniforms
 
@@ -258,9 +233,10 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                     torch.stack(res_all).amax(dim=0), e, X, Y, res_end)
 
 
-def _metropolis(params, state, proposal, evals_n, finite):
+def _metropolis(params, state, proposal, evals_n, finite, dH_host=None):
     """Difference-based ΔH (all-levels/2 fermion form, any level order)
-    and the float32 accept decision."""
+    and the float32 accept decision.  ``dH_host`` replaces the device ΔH
+    (cast to float32) in the decision and the record."""
     beta, J, mass = params.beta, params.J, params.mass
     p = proposal
     H_old = _energy_terms(state.delta_re, state.delta_im, p.pi_re0, p.pi_im0,
@@ -277,6 +253,8 @@ def _metropolis(params, state, proposal, evals_n, finite):
                     + 2.0 * (torch.sum(softplus(-b2 * En), -1)
                              - torch.sum(softplus(-b2 * Eo), -1)))
     dH = d_kin + d_bos + d_fer
+    if dH_host is not None:
+        dH = torch.as_tensor(dH_host, device=dH.device).to(torch.float32)
     accept = finite & ((dH < 0)
                        | (p.u < torch.exp(-dH.to(torch.float32))))
     return dH, accept, SweepInfo(accepted=accept, dH=dH, H_old=H_old,
@@ -322,15 +300,24 @@ def proposal_embedding(lat: LatticeSpec, params: ModelParams,
 
 def tracked_accept(lat: LatticeSpec, params: ModelParams,
                    state: HMCStateReal, proposal: Proposal,
-                   exact_solver: str = "qdwh", eig_new=None
+                   exact_solver: str = "qdwh", dH_host=None,
+                   finite_host=None, eig_new=None
                    ) -> tuple[HMCStateReal, SweepInfo]:
     """Exact anchor: exact embedding eigh of the proposal, difference-based
-    ΔH, Metropolis select.  ``eig_new``: precomputed ``(evals, X, Y)`` of
+    ΔH, Metropolis select.
+
+    ``dH_host`` (B,) with ``finite_host`` (B,) bool: the host float64 ΔH
+    (``ops/host_energy.py``), which replaces the device ΔH, cast to
+    float32, in the decision; a chain is accepted only if ``finite_host``
+    holds too.  The exact eigh still runs, so an accepted state carries
+    anchor-grade eigenpairs.  ``eig_new``: precomputed ``(evals, X, Y)`` of
     the proposal's (NaN-zeroed) embedding, which skips the internal
     diagonalization (the guarded PH anchor of
     ``parallel/ensemble.run_segment_tracked``)."""
     p = proposal
     finite = _all_finite(p.delta_re, p.delta_im, p.pi_re, p.pi_im)
+    if finite_host is not None:
+        finite = finite & torch.as_tensor(finite_host, device=finite.device)
     dre_s = _finite_or_zero(p.delta_re)
     dim_s = _finite_or_zero(p.delta_im)
     if eig_new is not None:
@@ -338,7 +325,8 @@ def tracked_accept(lat: LatticeSpec, params: ModelParams,
     else:
         M = proposal_embedding(lat, params, state, p)
         evals_n, X_n, Y_n = _exact_diagonalize(M, exact_solver)
-    dH, accept, info = _metropolis(params, state, p, evals_n, finite)
+    dH, accept, info = _metropolis(params, state, p, evals_n, finite,
+                                   dH_host)
     new_state = HMCStateReal(
         delta_re=_select(accept, dre_s, state.delta_re),
         delta_im=_select(accept, dim_s, state.delta_im),

@@ -1,7 +1,7 @@
 """Carry state and parameters in from numpy arrays.
 
-The JAX package's ``HMCStateReal`` and ``ModelParams``, given as mappings of
-field name → numpy array (``{k: np.asarray(v) for k, v in
+The JAX package's ``HMCState``, ``HMCStateReal`` and ``ModelParams``, given
+as mappings of field name → numpy array (``{k: np.asarray(v) for k, v in
 state._asdict().items()}``), become the port's on a given device, so that
 both packages can compute from the same state.  Fields the port does not
 carry (the JAX state's PRNG ``key``) are ignored.
@@ -14,7 +14,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from ..models.params import ModelParams
+from ..models.params import HMCState, ModelParams, complex_dtype_of
 from ..sampler.hmc_real import HMCStateReal
 from .device import resolve_device
 
@@ -24,16 +24,21 @@ def _torch_dtype(a) -> torch.dtype:
 
 
 def state_from_numpy(arrays: Mapping, *, dtype=None,
-                     device="cuda") -> HMCStateReal:
-    """HMCStateReal from batched arrays (leading chain dimension).
-    ``dtype`` defaults to that of ``arrays["evals"]``."""
+                     device="cuda") -> HMCState | HMCStateReal:
+    """HMCState (when ``arrays`` hold complex ``evecs``) or HMCStateReal
+    from batched arrays (leading chain dimension).  ``dtype`` is the real
+    dtype, by default that of ``arrays["evals"]``; complex fields take its
+    complex counterpart."""
     device = resolve_device(device)
     if dtype is None:
         dtype = _torch_dtype(arrays["evals"])
-    return HMCStateReal(**{
-        name: torch.as_tensor(np.array(arrays[name]), device=device).to(
-            dtype)
-        for name in HMCStateReal._fields})
+    cls = HMCState if "evecs" in arrays else HMCStateReal
+
+    def field(name):
+        x = torch.as_tensor(np.array(arrays[name]), device=device)
+        return x.to(complex_dtype_of(dtype) if x.is_complex() else dtype)
+
+    return cls(**{name: field(name) for name in cls._fields})
 
 
 def params_from_numpy(arrays: Mapping, *, dtype=None,

@@ -1,16 +1,18 @@
-"""Checkpoint / resume of the real-pair ensemble (port of the real path of
-``dwavehmc_tpu/utils/checkpoint.py``).
+"""Checkpoint / resume of an ensemble (port of
+``dwavehmc_tpu/utils/checkpoint.py``), for both state layouts.
 
 One ``.npz`` holds the Markov state as the JAX package writes it — ``delta``
-and ``pi`` recombined to complex, ``disorder``, ``sweep_idx`` and any
-caller-supplied ``extra_*`` arrays — plus, in place of the JAX PRNG
-``key``, the torch generator's state under ``torch_generator_state``.  The
-two packages' checkpoints therefore do not load into each other: each
-lacks the other's random state.
+and ``pi`` as complex arrays (the real-pair path's parts recombined),
+``disorder``, ``sweep_idx`` and any caller-supplied ``extra_*`` arrays —
+plus, in place of the JAX PRNG ``key``, the torch generator's state under
+``torch_generator_state``.  The two packages' checkpoints therefore do not
+load into each other: each lacks the other's random state.
 
 ``load_checkpoint`` rediagonalizes the eigenpairs from the saved (disorder,
-Δ) with ``models/bdg_real.diagonalize_embedding``; a tracked-mode resume
-re-anchors at the checkpoint (statistically equivalent, not bit-identical).
+Δ): ``models/bdg.diagonalize`` for the complex state,
+``models/bdg_real.diagonalize_embedding`` for the real pair.  A tracked-mode
+resume re-anchors at the checkpoint (statistically equivalent, not
+bit-identical).
 """
 
 from __future__ import annotations
@@ -20,31 +22,33 @@ import os
 import numpy as np
 import torch
 
+from ..models.bdg import assemble_bdg, diagonalize, static_hamiltonian
 from ..models.bdg_real import (
     assemble_embedding,
     diagonalize_embedding,
     static_embedding,
 )
 from ..models.lattice import LatticeSpec
-from ..models.params import ModelParams
+from ..models.params import HMCState, ModelParams, complex_dtype_of
 from ..sampler.hmc_real import HMCStateReal
 from .device import resolve_device
 
 GENERATOR_KEY = "torch_generator_state"
 
 
-def save_checkpoint(path: str, states: HMCStateReal, sweep_idx: int,
-                    extra: dict | None = None,
+def save_checkpoint(path: str, states: HMCState | HMCStateReal,
+                    sweep_idx: int, extra: dict | None = None,
                     generator: torch.Generator | None = None) -> None:
-    """Write a resumable snapshot of an ensemble (leading chain dim), and
-    ``generator``'s state when given.  Atomic: written to a temporary file,
-    then renamed."""
+    """Write a resumable snapshot of an ensemble (leading chain dim),
+    complex or real-pair, and ``generator``'s state when given.  Atomic:
+    written to a temporary file, then renamed."""
     as_np = lambda x: x.detach().cpu().numpy()  # noqa: E731
-    payload = {
-        "delta": as_np(states.delta_re) + 1j * as_np(states.delta_im),
-        "pi": as_np(states.pi_re) + 1j * as_np(states.pi_im),
-        "disorder": as_np(states.disorder),
-    }
+    if isinstance(states, HMCStateReal):
+        delta = as_np(states.delta_re) + 1j * as_np(states.delta_im)
+        pi = as_np(states.pi_re) + 1j * as_np(states.pi_im)
+    else:
+        delta, pi = as_np(states.delta), as_np(states.pi)
+    payload = {"delta": delta, "pi": pi, "disorder": as_np(states.disorder)}
     if generator is not None:
         payload[GENERATOR_KEY] = generator.get_state().numpy()
     payload["sweep_idx"] = np.asarray(sweep_idx)
@@ -56,17 +60,17 @@ def save_checkpoint(path: str, states: HMCStateReal, sweep_idx: int,
 
 
 def load_checkpoint(path: str, lat: LatticeSpec, params: ModelParams,
-                    state_path: str = "real", *,
+                    state_path: str = "complex", *,
                     generator: torch.Generator | None = None,
-                    device="cuda") -> tuple[HMCStateReal, int, dict]:
+                    device="cuda") -> tuple[HMCState | HMCStateReal, int,
+                                            dict]:
     """(state on ``device``, sweep_idx, extra) with eigenpairs recomputed
-    from (disorder, Δ).  A saved generator state is restored into
-    ``generator`` when both exist.  ``params`` supplies t, t′ and μ.  Only
-    the real-pair layout is ported (``state_path="real"``)."""
-    if state_path != "real":
-        raise NotImplementedError(
-            f"state_path={state_path!r}: only the real-pair state is ported "
-            "(the complex path is ROADMAP Queue 1 (d))")
+    from (disorder, Δ).  ``state_path``: "complex" → HMCState, "real" →
+    HMCStateReal.  A saved generator state is restored into ``generator``
+    when both exist.  ``params`` supplies t, t′ and μ."""
+    if state_path not in ("complex", "real"):
+        raise ValueError(f"state_path={state_path!r}: expected 'complex' or "
+                         "'real'")
     device = resolve_device(device)
     with np.load(path) as z:
         delta, pi, disorder = z["delta"], z["pi"], z["disorder"]
@@ -77,12 +81,21 @@ def load_checkpoint(path: str, lat: LatticeSpec, params: ModelParams,
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
     dis = t(disorder)
     rdt = dis.dtype
+    if generator is not None and gen_state is not None:
+        generator.set_state(torch.from_numpy(gen_state))
+    if state_path == "complex":
+        cdt = complex_dtype_of(rdt)
+        d = t(delta).to(cdt)
+        H = assemble_bdg(lat, static_hamiltonian(lat, params.t, params.tp,
+                                                 params.mu, dis), d)
+        evals, evecs = diagonalize(H)
+        state = HMCState(delta=d, pi=t(pi).to(cdt), disorder=dis,
+                         evals=evals, evecs=evecs)
+        return state, sweep_idx, extra
     dre, dim = t(delta.real).to(rdt), t(delta.imag).to(rdt)
     M = assemble_embedding(lat, static_embedding(lat, params.t, params.tp,
                                                  params.mu, dis), dre, dim)
     evals, X, Y = diagonalize_embedding(M)
-    if generator is not None and gen_state is not None:
-        generator.set_state(torch.from_numpy(gen_state))
     state = HMCStateReal(delta_re=dre, delta_im=dim,
                          pi_re=t(pi.real).to(rdt), pi_im=t(pi.imag).to(rdt),
                          disorder=dis, evals=evals, X=X, Y=Y)

@@ -8,15 +8,16 @@ What differs in the port:
 * ``torch_dtype()``/``rot_torch_dtype()`` replace ``jax_dtype()``/
   ``rot_jax_dtype()``, and ``params(device=)`` places the couplings on a
   device;
-* ``resolved_path()`` returns ``"real"`` for ``path="auto"``: the complex
-  path is not ported, and ``path="complex"`` raises ``NotImplementedError``
-  (ROADMAP Queue 1 (d));
-* ``metropolis_readout="host"`` raises ``NotImplementedError`` in
-  ``validate()`` (the host float64 readout, ROADMAP Queue 1 (c));
+* ``resolved_path()`` returns ``"real"`` for ``path="auto"``: the JAX
+  package resolves "auto" to the real-pair path on its production
+  accelerator and to the complex path elsewhere, and the port's production
+  accelerator is the GPU.  ``path="complex"`` selects the complex path;
 * ``use_pallas_s`` is accepted and ignored: a CUDA tensor always goes to the
-  hand-written kernel, a CPU tensor to its plain version;
-* ``profile_dir`` is accepted and ignored (``utils/profiling.py`` is not
-  ported).
+  hand-written kernel, a CPU tensor to its plain version.
+
+``validate()`` applies the JAX package's rules, among them that
+``metropolis_readout="host"`` needs ``eigh_mode="tracked"`` on the real
+path.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class RunConfig:
     n_chains: int = 1
     seed: int = 0
     dtype: str = "float32"          # "float32" | "float64"
-    path: str = "auto"              # "auto" → "real" (complex: not ported)
+    path: str = "auto"              # "auto" → "real" | "real" | "complex"
     eigh_mode: str = "exact"        # "exact" | "tracked"
     tracked_iters: int = 6          # refinement rotations per leapfrog step
     anchor_every: int = 1           # exact anchor every K sweeps
@@ -76,7 +77,8 @@ class RunConfig:
     #                                 the in-trajectory tracked rotations
     rot_scheme: str = "exp2"        # "exp2" | "ns" tracked rotation scheme
     use_pallas_s: bool | None = None  # accepted, ignored (routing by device)
-    metropolis_readout: str = "device"  # "device" ("host": not ported)
+    metropolis_readout: str = "device"  # "device" | "host" (float64 ΔH on
+    #                                 the host; tracked real path only)
     Nt_escalate: bool = True        # vectorized scan: per-point Nt buckets
     #                                 after the probe window
     anneal_stages: int = 0          # vectorized scan: β-ladder warm start
@@ -91,7 +93,8 @@ class RunConfig:
     verbose: bool = True
     checkpoint_freq: int = 50
     resume: bool = False
-    profile_dir: str | None = None   # accepted, ignored (no profiler port)
+    profile_dir: str | None = None   # torch.profiler trace of
+    #                                 run_simulation's measurement phase
 
     def lattice(self) -> LatticeSpec:
         return LatticeSpec(self.Lx, self.Ly)
@@ -120,13 +123,11 @@ class RunConfig:
         return 1 if self.rot_scheme == "exp2" else 2
 
     def resolved_path(self) -> str:
-        """"real" for "auto" and "real"; the complex path is not ported."""
+        """"real" for "auto" and "real", "complex" for "complex"."""
         if self.path in ("auto", "real"):
             return "real"
         if self.path == "complex":
-            raise NotImplementedError(
-                "path='complex': the complex path is not ported yet "
-                "(ROADMAP Queue 1 (d)); use path='real' or 'auto'")
+            return "complex"
         raise ValueError(f"path={self.path!r}: expected 'auto', 'real' or "
                          "'complex'")
 
@@ -134,7 +135,12 @@ class RunConfig:
         return dataclasses.asdict(self)
 
     def validate(self) -> None:
-        """Reject unsupported combinations before a scan starts."""
+        """Reject unsupported combinations at driver entry.
+
+        ``metropolis_readout='host'`` is wired through the tracked real-path
+        segment runner only (``parallel/ensemble.run_segment_hostacc``);
+        anywhere else it would silently fall back to the float32 device ΔH,
+        in the regime where exactness was asked for."""
         if self.metropolis_readout not in ("device", "host"):
             raise ValueError(
                 f"metropolis_readout={self.metropolis_readout!r}: expected "
@@ -145,11 +151,15 @@ class RunConfig:
         if self.exact_solver not in ("qdwh", "ph"):
             raise ValueError(f"exact_solver={self.exact_solver!r}: expected "
                              "'qdwh' or 'ph'")
-        if self.metropolis_readout == "host":
-            raise NotImplementedError(
-                "metropolis_readout='host': the host float64 Metropolis "
-                "readout is not ported yet (ROADMAP Queue 1 (c))")
-        self.resolved_path()
+        path = self.resolved_path()
+        if self.metropolis_readout == "host" and (
+                self.eigh_mode != "tracked" or path != "real"):
+            raise ValueError(
+                "metropolis_readout='host' requires eigh_mode='tracked' "
+                "and the real compute path (got eigh_mode="
+                f"{self.eigh_mode!r}, path={path!r}); the exact host "
+                "float64 readout is wired through the tracked real-path "
+                "runner only — see parallel/ensemble.run_segment_hostacc")
 
 
 def add_cli_args(parser: argparse.ArgumentParser,

@@ -231,3 +231,74 @@ def test_guarded_ph_anchor_falls_back_on_the_card(cuda):
     w0, X0, Y0 = diagonalize_embedding(M)
     assert fb is True
     assert torch.equal(w, w0) and torch.equal(X, X0) and torch.equal(Y, Y0)
+
+
+def _bdg_complex(L, seed):
+    """(1, 2N, 2N) complex128 CPU BdG matrix: disorder and a random Δ."""
+    from dwavehmc_tpu_torch.models.bdg import assemble_bdg, static_hamiltonian
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+
+    lat = LatticeSpec(L, L)
+    g = torch.Generator().manual_seed(seed)
+    p = make_params(dtype=torch.float64, device="cpu")
+    N = lat.n_sites
+    dis = (torch.rand(1, N, generator=g, dtype=torch.float64) < 0.05).double()
+    dre, dim = (0.1 * (torch.rand(1, N, 2, generator=g, dtype=torch.float64)
+                       - 0.5) for _ in range(2))
+    return assemble_bdg(lat, static_hamiltonian(lat, p.t, p.tp, p.mu, dis),
+                        torch.complex(dre, dim))
+
+
+@pytest.mark.parametrize("L", [4, 11, 12, 16, 17])
+def test_complex_eigh_reaches_single_precision_accuracy(cuda, L):
+    """The complex path's eigh of a complex64 Hermitian matrix on the card
+    (``ops/eigh.eigh_complex``, dimension 2N = 32 … 578, either side of the
+    512-dimension switch of ``models/bdg_real.symmetric_eigh``): eigenvalues
+    as good as complex64 ``eigh``'s on the CPU, orthonormal vectors."""
+    from dwavehmc_tpu_torch.ops.eigh import eigh_complex
+
+    H = _bdg_complex(L, L)
+    want = torch.linalg.eigvalsh(H)
+    cpu_err = float((torch.linalg.eigvalsh(H.to(torch.complex64)).double()
+                     - want).abs().max())
+    w, U = eigh_complex(H.to(torch.complex64).to(cuda))
+    assert w.dtype == torch.float32 and U.dtype == torch.complex64
+    assert float((w.double().cpu() - want).abs().max()) <= max(
+        2.0 * cpu_err, 2e-5)
+    eye = torch.eye(U.shape[-1], dtype=U.dtype, device=cuda)
+    assert float((U.mH @ U - eye).abs().max()) <= 1e-4
+
+
+def test_complex_transport_launches_k2_twice_and_matches_plain(
+        cuda, monkeypatch):
+    """``measure_transport_and_spectra`` on the card: two K2 launches (σ_DC
+    and σ(ω)), and the result of the same call with K2's plain version on
+    the same CUDA tensors — equal everywhere but in the two conductivities,
+    which agree to 1e-4 of their largest magnitude."""
+    from dwavehmc_tpu_torch.models import transport as ttr
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import SpectralSpec, make_params
+    from dwavehmc_tpu_torch.parallel.ensemble import init_ensemble
+
+    lat = LatticeSpec(6, 6)
+    spec = SpectralSpec(eta=8.0 / 36, domega=1.6 / 36, omega_max=4.0)
+    p = make_params(beta=[3.0, 30.0], W=1.0, J=0.8, device=cuda)
+    s = init_ensemble(lat, p, torch.Generator(device=cuda).manual_seed(0), 2,
+                      n_imp=0.05, device=cuda)
+    before = kernels.LAUNCHES["weighted_lorentzian_sum"]
+    got = ttr.measure_transport_and_spectra(lat, spec, p, s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["weighted_lorentzian_sum"] == before + 2
+    monkeypatch.setattr(ttr, "weighted_lorentzian_sum",
+                        kernels.weighted_lorentzian_sum_plain)
+    plain = ttr.measure_transport_and_spectra(lat, spec, p, s)
+    assert kernels.LAUNCHES["weighted_lorentzian_sum"] == before + 2
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(plain, name)
+        assert bool(torch.isfinite(a).all()), name
+        if name in ("dc_conductivity", "optical_conductivity"):
+            assert float((a - b).abs().max()) <= 1e-4 * float(
+                b.abs().max()), name
+        else:
+            assert torch.equal(a, b), name

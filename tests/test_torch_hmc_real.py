@@ -17,6 +17,7 @@ from dwavehmc_tpu.sampler import hmc_real as jhmc
 from dwavehmc_tpu.sampler.hmc import calc_optimal_dt
 from dwavehmc_tpu_torch.models.lattice import LatticeSpec as TLat
 from dwavehmc_tpu_torch.sampler import hmc_real as thmc
+from dwavehmc_tpu_torch.sampler.hmc import draw_momenta
 from dwavehmc_tpu_torch.utils.carry import params_from_numpy, state_from_numpy
 
 torch.set_num_threads(2)
@@ -119,7 +120,7 @@ def test_leapfrog_draws_from_generator(ensemble):
     _, _, tp, ts = ensemble
     g1, g2 = (torch.Generator().manual_seed(5) for _ in range(2))
     a = thmc.tracked_leapfrog(TL, tp, ts, 2, 0.05, generator=g1, **TRACK)
-    normals, u = thmc.draw_momenta(g2, (2, 2, N, 2), torch.float64, "cpu")
+    normals, u = draw_momenta(g2, (2, 2, N, 2), torch.float64, "cpu")
     b = thmc.tracked_leapfrog(TL, tp, ts, 2, 0.05, normals=normals,
                               uniforms=u, **TRACK)
     assert torch.equal(a.delta_re, b.delta_re) and torch.equal(a.u, b.u)

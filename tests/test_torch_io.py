@@ -168,8 +168,8 @@ def test_checkpoint_round_trip(tmp_path):
     want_next = torch.rand(4, generator=g)
 
     g2 = torch.Generator().manual_seed(123)
-    s2, idx, ex = tckpt.load_checkpoint(path, lat, p, generator=g2,
-                                        device="cpu")
+    s2, idx, ex = tckpt.load_checkpoint(path, lat, p, state_path="real",
+                                        generator=g2, device="cpu")
     assert idx == 12 and sorted(ex) == sorted(extra)
     np.testing.assert_array_equal(ex["dt_m"], extra["dt_m"])
     assert torch.equal(torch.rand(4, generator=g2), want_next)
@@ -179,9 +179,15 @@ def test_checkpoint_round_trip(tmp_path):
         lat, static_embedding(lat, p.t, p.tp, p.mu, s.disorder), s.delta_re,
         s.delta_im))
     assert torch.equal(s2.evals, w) and torch.equal(s2.X, X)
-    with pytest.raises(NotImplementedError):
-        tckpt.load_checkpoint(path, lat, p, state_path="complex",
-                              device="cpu")
+    # the same file as the complex path's state, rediagonalized complex
+    s3, idx3, _ = tckpt.load_checkpoint(path, lat, p, state_path="complex",
+                                        device="cpu")
+    assert idx3 == 12
+    assert torch.equal(s3.delta, torch.complex(s.delta_re, s.delta_im))
+    assert torch.equal(s3.pi, torch.complex(s.pi_re, s.pi_im))
+    torch.testing.assert_close(s3.evals, w, rtol=0.0, atol=1e-12)
+    with pytest.raises(ValueError):
+        tckpt.load_checkpoint(path, lat, p, state_path="bogus", device="cpu")
 
 
 def test_checkpoint_fields_match_jax_but_random_state_differs(tmp_path):

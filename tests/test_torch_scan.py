@@ -83,10 +83,15 @@ def test_runconfig_fields_and_cli_equal_jax():
     assert cfg.torch_dtype() == torch.float32
     assert cfg.rot_torch_dtype() is None
     assert cfg.resolved_path() == "real"
-    with pytest.raises(NotImplementedError):
-        tconfig.RunConfig(path="complex").validate()
-    with pytest.raises(NotImplementedError):
-        tconfig.RunConfig(metropolis_readout="host").validate()
+    complex_cfg = tconfig.RunConfig(path="complex")
+    complex_cfg.validate()
+    assert complex_cfg.resolved_path() == "complex"
+    # the host readout needs the tracked real path, as in the JAX package
+    for mod in (tconfig, jconfig):
+        with pytest.raises(ValueError):
+            mod.RunConfig(metropolis_readout="host").validate()
+        mod.RunConfig(metropolis_readout="host", eigh_mode="tracked",
+                      path="real").validate()
     with pytest.raises(ValueError):
         tconfig.RunConfig(exact_solver="magma").validate()
 
@@ -234,5 +239,46 @@ def test_batch_scan_T_main_on_cpu(tmp_path, capsys):
     assert len(out["dirs"]) == 2
     assert os.path.exists(os.path.join(root, "summary_all.csv"))
     assert "summary:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        batch_scan_T.main(["--mode", "serial", "--device", "cpu"])
+    # --mode serial: one run_simulation per point, here on the complex path
+    serial = batch_scan_T.main([
+        "--mode", "serial", "--device", "cpu", "--path", "complex",
+        "--Lx", "4", "--Ly", "4", "--n_T", "2", "--T_min", "0.5",
+        "--T_max", "2", "--n_therm", "2", "--n_measure", "2",
+        "--Nt_therm_init", "3", "--Nt_measure", "3", "--bin_size", "1",
+        "--eta", "0.25", "--domega", "0.25", "--omega_max", "1.0",
+        "--dtype", "float64", "--verbose", "false", "--no-summarize",
+        "--out_dir", str(tmp_path / "serial")])
+    assert [os.path.basename(r["out_dir"]) for r in serial] == ["T_0.5",
+                                                                 "T_2"]
+    for r in serial:
+        h, rows = _csv(os.path.join(r["out_dir"], "observables.csv"))
+        assert h == OBS_HEADER and len(rows) == 2
+
+
+@pytest.mark.parametrize("kind", ["host_readout", "complex"])
+def test_vectorized_scan_on_the_new_paths(tmp_path, kind):
+    """The vectorized scan with the host float64 readout (thermalization in
+    Nt buckets hands chain subsets to the readout's cache) and on the
+    complex path: the JAX layout, finite outputs, and a resume."""
+    extra = (dict(eigh_mode="tracked", metropolis_readout="host",
+                  exact_solver="qdwh", Nt_escalate=True, n_therm=7,
+                  dtype="float32")
+             if kind == "host_readout" else dict(path="complex"))
+    root = str(tmp_path / kind)
+    cfg = tiny(tconfig.RunConfig, root, n_measure=2, **extra)
+    out = tscan.run_scan_vectorized(cfg, [1e-3, 0.5], replicas=2,
+                                    device="cpu")
+    assert out["stage_sweeps"]["therm"] == cfg.n_therm
+    for d in out["dirs"]:
+        for name in ("observables.csv", "transport.csv"):
+            h, rows = _csv(os.path.join(d, name))
+            assert len(rows) == 2 * 2 if name.startswith("obs") else 2
+            assert all(np.isfinite(float(x)) for r in rows for x in r[3:])
+            dH = [float(r[3]) for r in rows] if name.startswith("obs") else []
+            assert all(np.isfinite(v) for v in dH)
+    out2 = tscan.run_scan_vectorized(
+        dataclasses.replace(cfg, n_measure=4, resume=True), [1e-3, 0.5],
+        replicas=2, device="cpu")
+    assert out2["stage_sweeps"]["measure"] == 2
+    h, rows = _csv(os.path.join(out2["dirs"][0], "observables.csv"))
+    assert [int(r[0]) for r in rows] == [1, 1, 2, 2, 3, 3, 4, 4]
