@@ -43,7 +43,26 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    points × 2 replicas and 8 sweeps), and the serial scan
    (``batch_scan_T --mode serial``, complex path, 12×12, 2 points) and its
    rerun, which skips both; counts are reset before and read after each;
-8. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+8. runs the scan sharded over W = min(4, max(2, device_count)) ranks with
+   ``torch.distributed.run`` (gloo; several ranks may share a card):
+   ``scan.sharded.equal`` holds a 6×6 float64 tracked scan of 3 points
+   (padded to a multiple of W) under W ranks against the same scan in one
+   process (accept columns equal, values within 1e-6 relative or one unit
+   of the CSV's sixth digit); ``scan.sharded`` runs ``batch_scan_T`` at the
+   production width and temperatures of ``scan.vectorized``, in this
+   process and under W ranks with the same arguments, and checks the
+   ranks' files, the post-processing, the initial ensemble (bit-equal to
+   ``scan.vectorized``'s), each rank's K1 and K2 launches against the
+   schedule and the guard counts (equal on every rank); it reports how far
+   the float32 runs agree, the guard's fallbacks and the acceptance of
+   each, and one anchored sweep of the same 8 chains as one batch, again,
+   and as the ranks' blocks (the batch-rounding witness); ``scan.beta`` runs
+   ``batch_scan_beta`` at its 12×12 width, 2 β points, under W ranks; the
+   kernels are built once before any launcher starts;
+9. prints the memory estimate of ``utils/memory.py`` for the main path's 8
+   chains beside ``torch.cuda.max_memory_allocated`` over
+   ``main.segment_K1``;
+10. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -60,6 +79,8 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -430,9 +451,13 @@ def main_path(dev, seed: int, power: str) -> dict:
 
     for n_sweeps, K in ((2, 1), (4, 4)):
         c0 = counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         (states, seg), sec = timed(lambda: run_segment_tracked(
             lat, params, states, n_sweeps, NT, dt, True,
             anchor_every=K, generator=gen, **TRACK))
+        if K == 1:
+            memory_phase(dev, lat, torch.cuda.max_memory_allocated(dev),
+                         power)
         c1 = counts()
         k1 = c1["rotation_s_parts"] - c0["rotation_s_parts"]
         emit({"phase": f"main.segment_K{K}", "sweeps": n_sweeps, "Nt": NT,
@@ -467,6 +492,20 @@ def main_path(dev, seed: int, power: str) -> dict:
               == (N_CHAINS, spec.n_omega), "sigma(omega) shape")
         _finite(res, f"transport_after_K{K}")
     return counts()
+
+
+def memory_phase(dev, lat, peak: int, power: str) -> None:
+    """``utils/memory.estimate_memory`` of the main path's chains beside the
+    allocator's peak over ``main.segment_K1``."""
+    from dwavehmc_tpu_torch.utils.memory import device_memory, estimate_memory
+
+    est = estimate_memory(lat, N_CHAINS, torch.float32)
+    emit({"phase": "memory", "lattice": [lat.Lx, lat.Ly], "chains": N_CHAINS,
+          "estimate": str(est), "estimate_bytes": est.total_bytes,
+          "max_memory_allocated_bytes": peak,
+          "estimate_over_allocated": est.total_bytes / peak,
+          "card_bytes": device_memory(dev), "gpu": power})
+    check(peak > 0, "memory: no allocation over main.segment_K1")
 
 
 #: kernel-name fragments → family, first match wins
@@ -803,11 +842,11 @@ def _stage_rates(out, chains: int) -> dict:
             if out["stage_sweeps"][k] and sec > 0}
 
 
-def scan_phases(dev, power: str) -> dict:
+def scan_phases(dev, power: str) -> tuple[dict, dict]:
     """``run_scan_vectorized`` at the production width into build/, then a
     resume to six measurement sweeps; then the untracked exact sweep at
     12×12.  Kernel counts are zeroed just before each run and read just
-    after it."""
+    after it.  Returns the launches and the first run's result."""
     import shutil
 
     from dwavehmc_tpu_torch.utils.config import RunConfig
@@ -889,7 +928,392 @@ def scan_phases(dev, power: str) -> dict:
     check(launches3["weighted_lorentzian_sum"] == 2 * cfg3.n_measure,
           f"exact mode: {launches3['weighted_lorentzian_sum']} K2 launches")
     return {name: launches[name] + launches2[name] + launches3[name]
-            for name in launches}
+            for name in launches}, dict(out, seconds=sec, k1_expected=k1_want)
+
+
+# --- the scan sharded over ranks ----------------------------------------------
+
+def ranks_for_sharding() -> int:
+    """W of the sharded phases: one rank per card, at least 2 (ranks share
+    a card when there are fewer) and at most 4."""
+    return min(4, max(2, torch.cuda.device_count()))
+
+
+def torchrun(module: str, argv: list, nproc: int, timeout: float,
+             log_path: str) -> float:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m module argv`` from the checkout, its output to ``log_path``.
+    Wall seconds; the launcher and its ranks are one process group, killed
+    if they outlast ``timeout`` or this script fails while they run."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // nproc)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", module, *argv]
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    tail = _read(log_path)[-3000:]
+    check(seconds < timeout, f"{module} under {nproc} ranks did not finish "
+          f"in {timeout} s:\n{tail}")
+    check(proc.returncode == 0, f"{module} under {nproc} ranks exited "
+          f"{proc.returncode}:\n{tail}")
+    return seconds
+
+
+def _cli(fields: dict) -> list:
+    """``RunConfig`` fields as the entry points' flags."""
+    return [a for k, v in fields.items() for a in (f"--{k}", str(v))]
+
+
+def _scan_log(root: str) -> list:
+    """scan.log's lines, without their time stamps."""
+    return [ln.split("] ", 1)[1] for ln in _read(
+        os.path.join(root, "scan.log")).splitlines()]
+
+
+def _log_line(lines: list, prefix: str) -> str:
+    got = [ln for ln in lines if ln.startswith(prefix)]
+    check(bool(got), f"scan.log has no line '{prefix}…'")
+    return got[0][len(prefix):]
+
+
+def _log_stages(lines: list) -> tuple[dict, dict]:
+    """(stage seconds, stage sweeps) of the "Stage seconds:" line."""
+    seconds, sweeps = {}, {}
+    for name, sec, n in re.findall(r"(\w+) ([0-9.]+) \((\d+) sweep",
+                                   _log_line(lines, "Stage seconds: ")):
+        seconds[name], sweeps[name] = float(sec), int(n)
+    return seconds, sweeps
+
+
+def _rel_errors(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a − b| / max |a| (0 for two empty or all-zero arrays)."""
+    scale = float(np.max(np.abs(a))) if a.size else 0.0
+    return float(np.max(np.abs(a - b))) / scale if scale > 0 else \
+        float(np.max(np.abs(a - b), initial=0.0))
+
+
+def compare_scans(a: str, b: str, rtol: float) -> dict:
+    """Largest relative differences between two scan roots: every CSV (the
+    accept column must be equal; a value may differ by ``rtol`` relative or
+    by one unit of its sixth printed digit), every spectra bin and the
+    checkpoint's arrays (max difference over max magnitude), and the
+    health file's numbers."""
+    from dwavehmc_tpu_torch.utils.io import SpectraBinStore
+
+    worst = {"csv": 0.0, "bins": 0.0, "checkpoint": 0.0, "health": 0.0}
+    names = sorted(os.listdir(a))
+    check(names == sorted(os.listdir(b)), f"{a} and {b} hold other files")
+    for d in (n for n in names if os.path.isdir(os.path.join(a, n))):
+        for name in ("observables.csv", "transport.csv"):
+            ha, va = _csv_rows(os.path.join(a, d, name))
+            hb, vb = _csv_rows(os.path.join(b, d, name))
+            check(ha == hb and va.shape == vb.shape, f"{d}/{name}: shape")
+            cols = ha.split(",")
+            if "Accepted" in cols:
+                i = cols.index("Accepted")
+                check(bool((va[:, i] == vb[:, i]).all()),
+                      f"{d}/{name}: accept columns differ")
+            diff = np.abs(va - vb)
+            unit = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(va),
+                                                         1e-300))) - 5)
+            check(bool((diff <= np.maximum(rtol * np.abs(va),
+                                           1.0001 * unit)).all()),
+                  f"{d}/{name}: values differ beyond {rtol}")
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rel = np.where(diff > 0, diff / np.abs(va), 0.0)
+            worst["csv"] = max(worst["csv"], float(rel.max()))
+        _, ba = SpectraBinStore.load_bins(os.path.join(a, d,
+                                                       "spectra_bins.npz"))
+        _, bb = SpectraBinStore.load_bins(os.path.join(b, d,
+                                                       "spectra_bins.npz"))
+        check(sorted(ba) == sorted(bb), f"{d}: bins differ")
+        for i in ba:
+            for k in ba[i]:
+                worst["bins"] = max(worst["bins"], _rel_errors(
+                    np.asarray(ba[i][k], float), np.asarray(bb[i][k], float)))
+    with np.load(os.path.join(a, "scan_checkpoint.npz")) as za, \
+            np.load(os.path.join(b, "scan_checkpoint.npz")) as zb:
+        for k in ("delta", "pi", "disorder", "sweep_idx", "extra_dt_m"):
+            worst["checkpoint"] = max(worst["checkpoint"],
+                                      _rel_errors(za[k], zb[k]))
+    ha = json.loads(_read(os.path.join(a, "therm_health.json")))
+    hb = json.loads(_read(os.path.join(b, "therm_health.json")))
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            check(x.keys() == y.keys(), "therm_health.json keys differ")
+            for k in x:
+                walk(x[k], y[k])
+        elif isinstance(x, (int, float)) and x is not None:
+            worst["health"] = max(worst["health"], abs(x - y) / max(
+                abs(x), 1e-300) if x != y else 0.0)
+        else:
+            check(x == y, "therm_health.json values differ")
+
+    walk(ha, hb)
+    for k, v in worst.items():
+        check(v <= rtol or k == "csv", f"{k} differ by {v} > {rtol}")
+    return worst
+
+
+#: the equality run: 6×6 float64, 3 points (padded to a multiple of W), the
+#: tracked path with the guarded PH anchor, Nt buckets after the probe
+#: window (n_therm = 7), a measurement probe, checkpoints
+EQUAL_ARGS = ["--Lx", "6", "--Ly", "6", "--dtype",
+              "float64", "--path", "real", "--eigh_mode", "tracked",
+              "--exact_solver", "ph", "--n_T", "3", "--T_min", "0.01",
+              "--T_max", "1", "--replicas", "1", "--n_therm", "7",
+              "--n_measure", "4", "--Nt_therm_init", "10", "--Nt_measure",
+              "6", "--anneal_stages", "0", "--meas_probe_sweeps", "2",
+              "--bin_size", "2", "--checkpoint_freq", "2", "--verbose",
+              "false", "--no-summarize"]
+
+
+def scan_sharded_equal_phase(dev, power: str, W: int) -> None:
+    """The same 6×6 float64 scan in one process and under W ranks."""
+    import shutil
+
+    from dwavehmc_tpu_torch.drivers import batch_scan_T
+
+    root = os.path.join(REPO, "build", "scan_smoke", "sharded_equal")
+    shutil.rmtree(root, ignore_errors=True)
+    one, many = os.path.join(root, "one"), os.path.join(root, "ranks")
+    argv = EQUAL_ARGS + ["--device", dev.type]
+    _, _, sec1 = _counted(lambda: batch_scan_T.main(
+        argv + ["--out_dir", one]))
+    secW = torchrun("dwavehmc_tpu_torch.drivers.batch_scan_T",
+                    argv + ["--out_dir", many], W, 300,
+                    os.path.join(root, "launcher.log"))
+    worst = compare_scans(one, many, 1e-6)
+    lines = _scan_log(many)
+    pad = (-3) % W
+    emit({"phase": "scan.sharded.equal", "lattice": [6, 6],
+          "dtype": "float64", "chains": 3, "ranks": W, "padded": pad,
+          "rank_map": _log_line(lines, "Vectorized T-scan: "),
+          "seconds_one_process": sec1, "seconds_ranks": secW,
+          "max_rel_diff": worst, "rtol": 1e-6, "gpu": power})
+    if pad:
+        check(any(f"Padding ensemble with {pad} throwaway chain(s)" in ln
+                  for ln in lines), "scan.sharded.equal: no padding line")
+
+
+def _mean_acceptance(root: str) -> float:
+    health = json.loads(_read(os.path.join(root, "therm_health.json")))
+    return float(np.mean([h["measurement"]["mean_acc"]
+                          for h in health.values()]))
+
+
+def scan_agreement(a: str, b: str) -> dict:
+    """How far two scan roots of the same chains agree, without a limit:
+    whether every point's CSVs are byte-equal, how many accept decisions
+    agree, and the largest relative CSV difference (a value non-finite in
+    both counts as equal)."""
+    same, agree, total, worst = True, 0, 0, 0.0
+    for d in sorted(n for n in os.listdir(a)
+                    if os.path.isdir(os.path.join(a, n))):
+        for name in ("observables.csv", "transport.csv"):
+            pa, pb = os.path.join(a, d, name), os.path.join(b, d, name)
+            same = same and _read(pa) == _read(pb)
+            ha, va = _csv_rows(pa)
+            _, vb = _csv_rows(pb)
+            if "Accepted" in ha:
+                i = ha.split(",").index("Accepted")
+                agree += int((va[:, i] == vb[:, i]).sum())
+                total += len(va)
+            equal = (va == vb) | (np.isnan(va) & np.isnan(vb))
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rel = np.abs(va - vb) / np.abs(va)
+            worst = max(worst, float(np.nanmax(np.where(equal, 0.0, rel))))
+    return {"csv_byte_equal": same, "accept_agree": [agree, total],
+            "max_rel_csv": worst}
+
+
+def batch_rounding_witness(dev, W: int) -> dict:
+    """One anchored tracked sweep of the main path's 8 chains (Nt = 20 and
+    the scan's rotation settings; the qdwh anchor, so that no guard
+    decides) from one state with one set of draws: as one batch, again as
+    one batch, and as the W ranks' blocks.  Largest |difference| of the new
+    Δ and of dH against the first run, and whether the accepts agree."""
+    from dwavehmc_tpu_torch.models.params import ModelParams
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        init_ensemble_real, run_segment_tracked)
+    from dwavehmc_tpu_torch.sampler.hmc import draw_momenta
+    from dwavehmc_tpu_torch.utils.config import RunConfig
+
+    cfg = RunConfig(**SCAN)
+    lat, _, _, params, dt = main_config(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s0 = init_ensemble_real(lat, params, gen, N_CHAINS, n_imp=PHYS["n_imp"],
+                            device=dev)
+    normals, uniforms = draw_momenta(gen, (N_CHAINS, 2, lat.n_sites, 2),
+                                     torch.float32, dev)
+
+    def sweep(blocks):
+        out = []
+        for rows in blocks:
+            i = torch.as_tensor(rows, device=dev)
+            p = ModelParams(*(x[i] if x.ndim else x for x in params))
+            s, seg = run_segment_tracked(
+                lat, p, type(s0)(*(x[i] for x in s0)), 1, NT, dt[i], False,
+                cfg.tracked_iters, 1, ns_steps=cfg.resolved_ns_steps(),
+                rot_dtype=cfg.rot_torch_dtype(), rot_scheme=cfg.rot_scheme,
+                normals=normals[i][None], uniforms=uniforms[i][None])
+            out.append((torch.stack([s.delta_re, s.delta_im], -1),
+                        seg.dH[0], seg.accepted[0]))
+        return [torch.cat(xs) for xs in zip(*out)]
+
+    one = sweep([np.arange(N_CHAINS)])
+    per = N_CHAINS // W
+    got = {"batch_again": sweep([np.arange(N_CHAINS)]),
+           f"{W}_blocks_of_{per}": sweep([np.arange(r * per, (r + 1) * per)
+                                          for r in range(W)])}
+    return {k: {"max_abs_delta": float((v[0] - one[0]).abs().max()),
+                "max_abs_dH": float((v[1] - one[1]).abs().max()),
+                "accepts_agree": bool(torch.equal(v[2], one[2]))}
+            for k, v in got.items()}
+
+
+def scan_sharded_phase(dev, power: str, W: int, vec: dict) -> dict:
+    """``batch_scan_T`` at the production width and temperatures of
+    ``scan.vectorized``, in this process and under W ranks with the same
+    arguments, and how far the two runs agree; the batch-rounding witness.
+    Returns the launches summed over the ranks."""
+    import shutil
+
+    from dwavehmc_tpu_torch.drivers import batch_scan_T
+    from dwavehmc_tpu_torch.drivers.postprocess import batch_process_spectra
+
+    base = os.path.join(REPO, "build", "scan_smoke")
+    root, one = (os.path.join(base, "sharded"),
+                 os.path.join(base, "sharded_one"))
+    for d in (root, one):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = _cli(SCAN) + ["--device", dev.type, "--n_T", str(len(TEMPS)),
+                        "--T_min", repr(float(TEMPS[0])), "--T_max",
+                        repr(float(TEMPS[-1])), "--replicas", "1"]
+    batch_scan_T.main(argv + ["--out_dir", one])
+    torch.cuda.empty_cache()
+    sec = torchrun("dwavehmc_tpu_torch.drivers.batch_scan_T",
+                   argv + ["--out_dir", root], W, 600,
+                   os.path.join(base, "sharded_launcher.log"))
+    lines = _scan_log(root)
+    one_lines = _scan_log(one)
+    vec_lines = _scan_log(os.path.join(base, "tracked"))
+    init = _log_line(lines, "Initial ensemble: ")
+    check(init == _log_line(vec_lines, "Initial ensemble: "),
+          "scan.sharded: the initial disorder and Δ differ from "
+          "scan.vectorized's")
+    ranks = json.loads(_log_line(lines, "Ranks: "))
+    check(len(ranks) == W, f"scan.sharded: {len(ranks)} ranks reported")
+    n_m = SCAN["n_measure"]
+    for r in ranks:
+        k1, k2 = (r["launches"]["rotation_s_parts"],
+                  r["launches"]["weighted_lorentzian_sum"])
+        check(k1 == vec["k1_expected"], f"scan.sharded rank {r['rank']}: "
+              f"{k1} K1 launches, the schedule implies {vec['k1_expected']}")
+        check(k2 == 2 * n_m, f"scan.sharded rank {r['rank']}: {k2} K2 "
+              f"launches, expected 2 per transport pass")
+        check({k: r["ph_guard"][k] for k in ("solves", "fallbacks")}
+              == {k: ranks[0]["ph_guard"][k] for k in ("solves",
+                                                       "fallbacks")},
+              "scan.sharded: the guard decided differently on two ranks")
+    diverged = 0
+    for v in TEMPS:
+        diverged += _check_csvs(os.path.join(root, f"T_{v:.6g}"), 1, n_m)
+    res = batch_process_spectra(root, "T_*")
+    check(not res["failed"] and len(res["processed"]) == len(TEMPS),
+          f"scan.sharded: post-processing failed on {res['failed']}")
+    check(os.path.exists(os.path.join(root, "summary_all.csv")),
+          "scan.sharded: no summary_all.csv")
+    seconds, sweeps = _log_stages(lines)
+    seconds1, _ = _log_stages(one_lines)
+    chains = len(TEMPS)
+    coll = [r["collective_seconds"] for r in ranks]
+
+    def rates(sec_by_stage):
+        return {k: chains * sweeps[k] / t for k, t in sec_by_stage.items()
+                if sweeps[k] and t > 0}
+
+    emit({"phase": "scan.sharded", "lattice": [L_MAIN, L_MAIN],
+          "T": TEMPS.tolist(), "ranks": W,
+          "rank_map": _log_line(lines, "Vectorized T-scan: "),
+          "launcher_seconds": sec, "stage_seconds": seconds,
+          "stage_sweeps": sweeps, "traj_per_s": rates(seconds),
+          "measurement_acceptance": _mean_acceptance(root),
+          "one_process_same_argv": {
+              "stage_seconds": seconds1, "traj_per_s": rates(seconds1),
+              "measurement_acceptance": _mean_acceptance(one),
+              "ph_guard": json.loads(_log_line(one_lines,
+                                               "Ranks: "))[0]["ph_guard"],
+              "initial_ensemble_equal": _log_line(
+                  one_lines, "Initial ensemble: ") == init,
+              # scan.vectorized's root was resumed past these rows
+              "csv_rows_equal_to_scan_vectorized": all(
+                  _read(os.path.join(base, "tracked", d, n)).startswith(
+                      _read(os.path.join(one, d, n)))
+                  for d in os.listdir(one)
+                  if os.path.isdir(os.path.join(one, d))
+                  for n in ("observables.csv", "transport.csv"))},
+          "ranks_vs_one_process": scan_agreement(one, root),
+          "batch_rounding_witness": batch_rounding_witness(dev, W),
+          "collective_seconds_by_rank": coll,
+          "collective_share": max(coll) / sum(seconds.values()),
+          "host_readout": "none: this configuration reads out on the card",
+          "rejected_nonfinite_dH": diverged, "initial_ensemble": init,
+          "launches_by_rank": [r["launches"] for r in ranks],
+          "ph_guard_by_rank": [r["ph_guard"] for r in ranks],
+          "gpu": power})
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def scan_beta_phase(dev, power: str, W: int) -> dict:
+    """``batch_scan_beta`` at its 12×12 default width under W ranks, cut to
+    2 β points (0.01 and 100), 2 therm and 2 measurement sweeps."""
+    import shutil
+
+    root = os.path.join(REPO, "build", "scan_smoke", "beta")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--device", dev.type, "--n_beta", "2", "--beta_min", "0.01",
+            "--beta_max", "100", "--n_therm", "2", "--n_measure", "2",
+            "--meas_probe_sweeps", "0", "--bin_size", "1",
+            "--checkpoint_freq", "0", "--verbose", "false",
+            "--out_dir", root]
+    sec = torchrun("dwavehmc_tpu_torch.drivers.batch_scan_beta", argv, W,
+                   300, os.path.join(REPO, "build", "scan_smoke",
+                                     "beta_launcher.log"))
+    lines = _scan_log(root)
+    ranks = json.loads(_log_line(lines, "Ranks: "))
+    for v in (0.01, 100.0):
+        _check_csvs(os.path.join(root, f"beta_{v:.6g}"), 1, 2)
+    summary = _read(os.path.join(root, "summary_all.csv")).splitlines()
+    check(len(summary) == 3, "scan.beta: summary_all.csv lacks a point")
+    for r in ranks:
+        check(r["launches"]["weighted_lorentzian_sum"] == 4,
+              f"scan.beta rank {r['rank']}: "
+              f"{r['launches']['weighted_lorentzian_sum']} K2 launches, "
+              f"expected 2 per transport pass")
+    seconds, sweeps = _log_stages(lines)
+    emit({"phase": "scan.beta", "lattice": [12, 12], "beta": [0.01, 100.0],
+          "ranks": W, "rank_map": _log_line(lines, "Vectorized beta-scan: "),
+          "launcher_seconds": sec, "stage_seconds": seconds,
+          "stage_sweeps": sweeps,
+          "launches_by_rank": [r["launches"] for r in ranks], "gpu": power})
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
 
 
 # --- the complex path and the host readout -----------------------------------
@@ -1171,7 +1595,7 @@ def main(argv=None) -> int:
     launches = main_path(dev, args.seed, power)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    scan_launches = scan_phases(dev, power)
+    scan_launches, vec = scan_phases(dev, power)
     for name, n in scan_launches.items():
         check(n > 0, f"kernel {name} was not launched by the scan")
         launches[name] += n
@@ -1190,6 +1614,15 @@ def main(argv=None) -> int:
                   f"{phase.__name__}")
         for name, n in counts.items():
             launches[name] += n
+    # the sharded phases start W processes on the card: leave them room
+    torch.cuda.empty_cache()
+    W = ranks_for_sharding()
+    scan_sharded_equal_phase(dev, power, W)
+    for name, n in scan_sharded_phase(dev, power, W, vec).items():
+        check(n > 0, f"kernel {name} was not launched by scan.sharded")
+        launches[name] += n
+    for name, n in scan_beta_phase(dev, power, W).items():
+        launches[name] += n
     profile_phase(dev, args.seed, power)
 
     rows = [

@@ -11,6 +11,14 @@ is a flag.  ``--mode vectorized`` runs the whole grid as one ensemble;
 ``--mode serial`` runs one ``run_simulation`` per point (with ``--resume
 true`` a finished point is skipped).  ``--summarize`` (default on) writes
 ``summary_all.csv``.
+
+On a node of several cards the vectorized scan runs one rank per card,
+each on a block of the chains (``parallel/mesh.py``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node W \\
+        -m dwavehmc_tpu_torch.drivers.batch_scan_T ...
+
+Its files equal the one-process run's; rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -18,8 +26,17 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+import torch.distributed as dist
+
 from .postprocess import summarize_scan
 from .scan import default_T_grid, run_scan_serial, run_scan_vectorized
+from ..parallel.mesh import (
+    maybe_setup_distributed,
+    rank_device,
+    teardown_distributed,
+    world,
+)
 from ..utils.config import RunConfig, add_cli_args, from_namespace
 
 
@@ -46,20 +63,42 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def run_grid(ns: argparse.Namespace, values: np.ndarray, scan_param: str,
+             summarize: bool = True):
+    """The scan of ``values`` that ``ns`` asks for, in a process group when
+    the environment has one (joined first, before any device use, and left
+    at the end); rank 0 summarizes."""
+    cfg = from_namespace(ns)
+    joined = not dist.is_initialized() and maybe_setup_distributed()
+    try:
+        rank, W = world()
+        if ns.mode == "serial":
+            if W > 1:
+                raise ValueError(
+                    f"--mode serial runs one point after another in one "
+                    f"process and has no rank layout; under {W} ranks use "
+                    f"--mode vectorized")
+            out = run_scan_serial(cfg, values, scan_param=scan_param,
+                                  device=ns.device)
+        else:
+            out = run_scan_vectorized(cfg, values, scan_param=scan_param,
+                                      replicas=ns.replicas,
+                                      device=rank_device(ns.device))
+        if summarize and rank == 0:
+            prefix = f"{scan_param}_"
+            print("summary:", summarize_scan(cfg.out_dir, prefix, scan_param))
+        return out
+    finally:
+        if joined:
+            teardown_distributed()
+
+
 def main(argv=None):
     """The vectorized scan's result dict, or the serial scan's list of
     per-point results."""
     ns = parser().parse_args(argv)
-    cfg = from_namespace(ns)
-    Ts = default_T_grid(ns.n_T, ns.T_min, ns.T_max)
-    if ns.mode == "serial":
-        out = run_scan_serial(cfg, Ts, scan_param="T", device=ns.device)
-    else:
-        out = run_scan_vectorized(cfg, Ts, scan_param="T",
-                                  replicas=ns.replicas, device=ns.device)
-    if ns.summarize:
-        print("summary:", summarize_scan(cfg.out_dir, "T_", "T"))
-    return out
+    return run_grid(ns, default_T_grid(ns.n_T, ns.T_min, ns.T_max), "T",
+                    ns.summarize)
 
 
 if __name__ == "__main__":

@@ -4,17 +4,19 @@
  * ``run_scan_serial`` — one full ``run_simulation`` (adaptive
    thermalization included) per grid point, each into its own
    ``<scan_param>_<value>/`` directory; with ``cfg.resume`` a finished point
-   is skipped and a partial one resumes.
+   is skipped and a partial one resumes.  One process.
  * ``run_scan_vectorized`` — every (grid point × replica) chain as one row
-   of a single ensemble with per-chain (β, dt) on one device, the results
-   sliced back into the same per-point layout
-   (``<scan_param>_<value>/{observables.csv, transport.csv,
-   spectra_bins.npz}`` plus ``scan.log``, ``scan_config.json``,
-   ``therm_health.json`` and ``scan_checkpoint.npz`` under the root).
+   of a single ensemble with per-chain (β, dt), the results sliced back
+   into the same per-point layout (``<scan_param>_<value>/{observables.csv,
+   transport.csv, spectra_bins.npz}`` plus ``scan.log``,
+   ``scan_config.json``, ``therm_health.json`` and ``scan_checkpoint.npz``
+   under the root).  Under a process group of W ranks
+   (``parallel/mesh.py``) the ensemble is padded to a multiple of W and
+   each rank runs a contiguous block of it on its own card; every chain
+   gets the draws, the decisions and the guard fallbacks of the one-process
+   run, so the output does not depend on W, and rank 0 writes it.
 
-Either package's post-processing reads either package's scans.  Not ported
-here: the JAX scan's padding of the ensemble to a device multiple and its
-device mesh: one card runs the whole ensemble, so nothing is padded.
+Either package's post-processing reads either package's scans.
 """
 
 from __future__ import annotations
@@ -24,15 +26,27 @@ import json
 import os
 import time
 
+import hashlib
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..models.params import ModelParams
-from ..ops import ph_eigh
+from ..ops import kernels, ph_eigh
+from ..parallel.ensemble import RowDraws
+from ..parallel.mesh import (
+    COMM,
+    barrier,
+    gather_global_batch,
+    gather_objects,
+    process_batch_slice,
+    rank_device,
+    world,
+)
 from ..sampler.hmc import calc_optimal_dt
-from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.checkpoint import load_checkpoint, save_checkpoint, state_arrays
 from ..utils.config import RunConfig
-from ..utils.device import resolve_device
 from ..utils.io import (
     OBS_HEADER,
     TRANS_HEADER,
@@ -41,6 +55,7 @@ from ..utils.io import (
     TeeLogger,
     write_json,
 )
+from ..utils.memory import device_memory, estimate_memory
 from .simulation import run_simulation, segment_functions
 
 
@@ -194,10 +209,62 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+class _Part(NamedTuple):
+    """Chains that run one segment together, as one rank sees them."""
+
+    rows: np.ndarray       # the chains, ascending (global indices)
+    sel: np.ndarray        # this rank's rows (of its block) that run them
+    draw: np.ndarray       # each of those rows' position in ``rows``: its
+    #                        draws, dt and β
+    vote: np.ndarray       # which of those rows are real chains
+    stand_in: bool         # no chain of ``rows`` is here: ``sel`` is a
+    #                        stand-in whose results are dropped
+
+
+def _part(src: np.ndarray, real: np.ndarray, rows: np.ndarray) -> _Part:
+    """The ``_Part`` of chains ``rows`` on a rank whose block runs chains
+    ``src`` (a padded row repeats the last real chain; ``real`` marks the
+    others).  A rank that holds none of them runs its first row as a
+    stand-in with the first chain's draws, dt and β, so that it still makes
+    every collective of the segment (the PH guard's vote among them); the
+    stand-in votes False."""
+    sel = np.flatnonzero(np.isin(src, rows))
+    if sel.size == 0:
+        zero = np.zeros(1, dtype=int)
+        return _Part(rows, zero, zero, np.zeros(1, dtype=bool), True)
+    return _Part(rows, sel, np.searchsorted(rows, src[sel]), real[sel], False)
+
+
+def _gather_rows(pt: _Part, arrays, axis: int, dst: int | None = None):
+    """Each array's entries (along ``axis``) of the real chains of ``pt``
+    from every rank: the ranks hold contiguous blocks in rank order, so the
+    concatenation is in the order of ``pt.rows``.  ``dst`` as in
+    ``parallel/mesh.gather_global_batch``."""
+    keep = np.flatnonzero(pt.vote)
+    out = gather_global_batch([np.take(a, keep, axis=axis) for a in arrays],
+                              dst=dst, axis=axis)
+    if out is not None and out[0].shape[axis] != len(pt.rows):
+        raise RuntimeError(f"gathered {out[0].shape[axis]} chains of "
+                           f"{len(pt.rows)}")
+    return out
+
+
+def _sha1(a: np.ndarray) -> str:
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _rank_map(where: list) -> str:
+    """"2 rank(s) on 1 card(s): rank 0 → cuda:0 (name), rank 1 → …"."""
+    cards = {w for w in where if w != "cpu"}
+    on = f"{len(cards)} card(s)" if cards else "the CPU"
+    return (f"{len(where)} rank(s) on {on}: "
+            + ", ".join(f"rank {r} → {w}" for r, w in enumerate(where)))
+
+
 def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                         out_root: str | None = None,
                         replicas: int | None = None,
-                        device="cuda") -> dict:
+                        device="cuda", use_mesh: bool = True) -> dict:
     """Whole grid in one ensemble: chains = len(values) × replicas.
 
     Optional β-ladder anneal, then thermalization with ``Nt_therm_init``
@@ -220,20 +287,48 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     up to the checkpoint, and continues the measurement loop.  Each guarded
     PH solve and fallback is counted in ``scan.log``.
 
+    Under a process group of W ranks the chains are padded to a multiple
+    of W with copies of the last chain (its state, draws, β and dt; left
+    out of every output and count) and each rank runs a contiguous block
+    on its own card (``parallel/mesh.rank_device``).
+    Every rank draws each sweep's draws of all chains and keeps its own
+    (``parallel/ensemble.RowDraws``), the per-chain accepts and dH of every
+    segment go to every rank, so that the dt controller, the Nt buckets and
+    the health tests decide alike everywhere, and the PH guard falls back
+    on all ranks together: each chain runs as in the one-process run.  A
+    rank with no chain of an Nt bucket runs a stand-in, so that every rank
+    makes the same collectives.  Rank 0 gathers the rows, bins and
+    checkpoint and writes every file.  ``use_mesh`` keeps the JAX
+    signature; its only effect is that ``False`` under several ranks
+    raises (each would run and write the whole ensemble).
+
     Returns the point directories, the chain count, the PH guard's counts
-    over this run (``ops/ph_eigh.GUARD``), and ``stage_seconds``/``stage_sweeps`` for init,
-    anneal, therm, probe and measure (wall seconds, ending in a device
-    synchronize; sweeps that each advance every chain once)."""
+    over this run (``ops/ph_eigh.GUARD``; the failing chains summed over
+    ranks), ``stage_seconds``/``stage_sweeps`` for init, anneal, therm,
+    probe and measure (wall seconds of the slowest rank, ending in a device
+    synchronize and a barrier; sweeps that each advance every chain once),
+    the world size, and per rank its device, kernel launches, guard counts
+    and seconds in collectives."""
     cfg.validate()
-    dev = resolve_device(device)
+    rank, W = world()
+    if W > 1 and not use_mesh:
+        raise ValueError(f"use_mesh=False runs the whole ensemble in one "
+                         f"process, but this is rank {rank} of {W}: every "
+                         f"rank would run and write it")
+    dev = rank_device(device)
     out_root = out_root or cfg.out_dir
     os.makedirs(out_root, exist_ok=True)
-    log = TeeLogger(os.path.join(out_root, "scan.log"), cfg.verbose)
+    tee = (TeeLogger(os.path.join(out_root, "scan.log"), cfg.verbose)
+           if rank == 0 else None)
+
+    def log(msg: str) -> None:
+        if tee is not None:
+            tee(msg)
 
     values = np.asarray([float(v) for v in values])
     G = len(values)
     C = replicas if replicas is not None else cfg.n_chains
-    n_run = G * C
+    n_total = G * C
     lat = cfg.lattice()
     spec = cfg.spectral()
     dtype = cfg.torch_dtype()
@@ -246,17 +341,31 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         raise ValueError("vectorized scan supports scan_param in {'T','beta'}")
     beta_per_chain = np.repeat(betas, C)
 
+    n_pad = (-n_total) % W
+    if n_pad:
+        log(f"Padding ensemble with {n_pad} throwaway chain(s) to reach a "
+            f"multiple of {W} devices ({n_total} -> {n_total + n_pad}).")
+    block = process_batch_slice(n_total + n_pad, rank=rank)
+    mine = np.arange(block.start, block.stop)
+    src = np.minimum(mine, n_total - 1)     # the chain each row runs
+    real = mine < n_total
+    every = _part(src, real, np.arange(n_total))
+
     base = cfg.params(device=dev)
-    params = _broadcast_params(base, n_run, beta=beta_per_chain)
+    params = _broadcast_params(base, len(src), beta=beta_per_chain[src])
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu")
+    where = gather_objects(f"{dev} ({torch.cuda.get_device_name(dev)})"
+                           if dev.type == "cuda" else str(dev))
     log(f"Vectorized {scan_param}-scan: {G} points x {C} replicas = "
-        f"{n_run} chains on 1 device ({dev_name}); "
-        f"lattice {cfg.Lx}x{cfg.Ly}")
+        f"{n_total} chains on {_rank_map(where)}; lattice {cfg.Lx}x{cfg.Ly}")
+    est = estimate_memory(lat, len(src), dtype)
+    log(f"{len(src)} chain(s) per rank; memory estimate per rank: {est}"
+        + (f" of {device_memory(dev) / 2**30:.1f} GiB on the card"
+           if dev.type == "cuda" else ""))
 
     path = cfg.resolved_path()
-    guard0 = dict(ph_eigh.GUARD)
+    guard0, launch0 = dict(ph_eigh.GUARD), dict(kernels.LAUNCHES)
+    comm0 = dict(COMM)
     stage_seconds: dict[str, float] = {}
     stage_sweeps = dict.fromkeys(("init", "anneal", "therm", "probe",
                                   "measure"), 0)
@@ -265,6 +374,7 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     def stage_done(name: str) -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        barrier()
         now = time.perf_counter()
         stage_seconds[name] = now - t_stage[0]
         t_stage[0] = now
@@ -272,13 +382,24 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     # the host readout keeps one potential cache across every segment of
     # this run; a resume recomputes it from the loaded states
     seg_fn, init_fn, transport_fn = segment_functions(cfg, lat, gen)
+    tail = (2, lat.n_sites, 2)
 
-    def run_seg(p, s, n, Nt, dts, measure, anchor_every=None):
-        """One segment: the states, the SegmentResult, and its accepts and
-        dH as numpy arrays (n, chains)."""
-        dt = torch.as_tensor(np.asarray(dts), dtype=dtype, device=dev)
-        s, seg = seg_fn(p, s, n, Nt, dt, measure, anchor_every=anchor_every)
-        return s, seg, _np(seg.accepted), _np(seg.dH)
+    def run_seg(pt, s, n, Nt, dt_R, beta_R, measure, anchor_every=None):
+        """``n`` sweeps of the chains ``pt.rows``, of which ``s`` holds this
+        rank's (``pt.sel``); ``dt_R``/``beta_R`` give each chain of
+        ``pt.rows`` its step and β.  The local states and SegmentResult,
+        and the accepts and dH of every chain of ``pt.rows`` as numpy
+        (n, len(pt.rows)), the same on every rank."""
+        p = _broadcast_params(base, len(pt.draw),
+                              beta=np.asarray(beta_R)[pt.draw])
+        dt = torch.as_tensor(np.asarray(dt_R)[pt.draw], dtype=dtype,
+                             device=dev)
+        draws = RowDraws(gen, len(pt.rows), tail, dtype, pt.draw, dev)
+        s, seg = seg_fn(p, s, n, Nt, dt, measure, anchor_every=anchor_every,
+                        normals=draws.normals, uniforms=draws.uniforms,
+                        vote=pt.vote)
+        acc, dH = _gather_rows(pt, (_np(seg.accepted), _np(seg.dH)), axis=1)
+        return s, seg, acc, dH
 
     # --- resume: restore ensemble + measurement progress -----------------
     ckpt_path = os.path.join(out_root, "scan_checkpoint.npz")
@@ -302,22 +423,27 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         if ok:
             states, n_done0, ckpt_extra = load_checkpoint(
                 ckpt_path, lat, base, state_path=path, generator=gen,
-                device=dev)
+                rows=src, device=dev)
             dt_m_saved = ckpt_extra.get("dt_m")
             log(f"Resumed scan at measurement sweep {n_done0} "
                 f"from {ckpt_path}.")
     if n_done0 == 0:
-        states = init_fn(lat, base, gen, n_run, dtype=dtype,
-                         n_imp=cfg.n_imp, device=dev)
+        states = init_fn(lat, base, gen, n_total, dtype=dtype,
+                         n_imp=cfg.n_imp, rows=src, vote=real, device=dev)
+        got = _gather_rows(every, [state_arrays(states)[k] for k in (
+            "disorder", "delta")], axis=0, dst=0)
+        if got is not None:
+            log(f"Initial ensemble: sha1 {_sha1(got[0])} of the disorder, "
+                f"{_sha1(got[1])} of Δ")
     stage_done("init")
 
     # --- β-ladder annealing (warm start) --------------------------------
     # every chain runs a geometric β ramp from min(β, anneal_start_beta) up
     # to its target before thermalization; warm chains run their own β
-    anneal_factor = np.ones(n_run)
+    anneal_factor = np.ones(n_total)
     needs_ramp = bool(np.any(beta_per_chain > cfg.anneal_start_beta))
     if n_done0 == 0 and cfg.anneal_stages > 0 and not needs_ramp:
-        log(f"Annealing skipped: all {n_run} chain(s) have "
+        log(f"Annealing skipped: all {n_total} chain(s) have "
             f"β ≤ {cfg.anneal_start_beta:g} (warm start unnecessary)")
     if n_done0 == 0 and cfg.anneal_stages > 0 and needs_ramp:
         Nt_a = cfg.Nt_therm_init
@@ -327,13 +453,12 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
             f"geometric β ramp from min(β, {cfg.anneal_start_beta:g})")
         for k in range(1, K + 1):
             beta_k = b_origin * (beta_per_chain / b_origin) ** (k / K)
-            params_k = _broadcast_params(base, n_run, beta=beta_k)
             dt0_k = np.asarray([calc_optimal_dt(b, cfg.J, cfg.mass, Nt_a)
                                 for b in beta_k])
             dt_k = dt0_k * anneal_factor
-            states, _, acc_w, dH_k = run_seg(params_k, states,
+            states, _, acc_w, dH_k = run_seg(every, states,
                                              cfg.anneal_sweeps, Nt_a, dt_k,
-                                             False, anchor_every=1)
+                                             beta_k, False, anchor_every=1)
             acc_k = acc_w.mean(axis=0)
             dt_k = adapt_dts(dt_k, acc_k, dt0_k,
                              med_absdH=np.median(np.abs(dH_k), axis=0),
@@ -350,17 +475,18 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     dt0 = np.asarray(
         [calc_optimal_dt(b, cfg.J, cfg.mass, Nt_th) for b in beta_per_chain])
     dts = dt0 * anneal_factor   # carry the annealing ramp's learned shrink
-    point_of_chain = np.arange(n_run) // C
-    Nt_chain = np.full(n_run, Nt_th, dtype=int)
-    acc_chain = np.ones(n_run)
-    med_dH_chain = np.zeros(n_run)
+    point_of_chain = np.arange(n_total) // C
+    Nt_chain = np.full(n_total, Nt_th, dtype=int)
+    acc_chain = np.ones(n_total)
+    med_dH_chain = np.zeros(n_total)
 
     done = 0 if n_done0 == 0 else cfg.n_therm   # resumed: already thermal
     stage_sweeps["therm"] = cfg.n_therm - done
     if done < cfg.n_therm:
         n = min(window, cfg.n_therm - done)
-        states, _, acc_w, dH_w = run_seg(params, states, n, Nt_th, dts,
-                                         False, anchor_every=1)
+        states, _, acc_w, dH_w = run_seg(every, states, n, Nt_th, dts,
+                                         beta_per_chain, False,
+                                         anchor_every=1)
         done += n
         acc_chain = acc_w.mean(axis=0)
         med_dH_chain = np.median(dH_w, axis=0)
@@ -384,9 +510,8 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         for Nt_b, pts in buckets.items():
             rows = np.sort(np.concatenate(
                 [np.flatnonzero(point_of_chain == g) for g in pts]))
-            trows = torch.as_tensor(rows, device=dev)
-            st_b = _take_rows(states, trows)
-            par_b = _take_rows(params, trows)
+            pt = _part(src, real, rows)
+            st_b = _take_rows(states, torch.as_tensor(pt.sel, device=dev))
             dt0_b = np.asarray([calc_optimal_dt(b, cfg.J, cfg.mass, Nt_b)
                                 for b in beta_per_chain[rows]])
             # preserve the probe window's learned per-chain correction
@@ -396,8 +521,9 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
             Nt_cur, escal_left, done_b = Nt_b, 2, done
             while done_b < cfg.n_therm:
                 n = min(window, cfg.n_therm - done_b)
-                st_b, _, acc_w, dH_b = run_seg(par_b, st_b, n, Nt_cur,
-                                               dts_b, False, anchor_every=1)
+                st_b, _, acc_w, dH_b = run_seg(pt, st_b, n, Nt_cur, dts_b,
+                                               beta_per_chain[rows], False,
+                                               anchor_every=1)
                 done_b += n
                 acc_b = acc_w.mean(axis=0)
                 # bounded re-escalation while acceptance stays collapsed
@@ -420,18 +546,21 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                 dts_b = adapt_dts(dts_b, acc_b, dt0_b,
                                   med_absdH=np.median(np.abs(dH_b), axis=0),
                                   med_dH=med_dH_b)
-            merged.append((rows, st_b, dts_b, dt0_b, acc_b, med_dH_b))
+            merged.append((rows, pt, st_b, dts_b, dt0_b, acc_b, med_dH_b))
             log(f"Therm bucket Nt={Nt_cur} done ({len(pts)} point(s)), "
                 f"acc [{acc_b.min():.2f}, {acc_b.max():.2f}]")
-        # merge buckets back in original chain order
+        # merge buckets back in original chain order: the host arrays over
+        # every chain, the states over this rank's rows (stand-ins dropped)
         inv = np.argsort(np.concatenate([m[0] for m in merged]))
-        tinv = torch.as_tensor(inv, device=dev)
+        held = [m for m in merged if not m[1].stand_in]
+        tinv = torch.as_tensor(np.argsort(np.concatenate(
+            [m[1].sel for m in held])), device=dev)
         states = type(states)(*(torch.cat(xs)[tinv] for xs in
-                                zip(*[m[1] for m in merged])))
-        dts = np.concatenate([m[2] for m in merged])[inv]
-        dt0 = np.concatenate([m[3] for m in merged])[inv]
-        acc_chain = np.concatenate([m[4] for m in merged])[inv]
-        med_dH_chain = np.concatenate([m[5] for m in merged])[inv]
+                                zip(*[m[2] for m in held])))
+        dts = np.concatenate([m[3] for m in merged])[inv]
+        dt0 = np.concatenate([m[4] for m in merged])[inv]
+        acc_chain = np.concatenate([m[5] for m in merged])[inv]
+        med_dH_chain = np.concatenate([m[6] for m in merged])[inv]
 
     if n_done0 == 0:
         unhealthy = chain_health(dts, acc_chain, dt0)
@@ -447,7 +576,8 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                 "unhealthy_chains": int(unhealthy[sel].sum()),
                 "neg_dH_biased_chains": int(biased[sel].sum()),
             }
-        write_json(os.path.join(out_root, "therm_health.json"), health)
+        if rank == 0:
+            write_json(os.path.join(out_root, "therm_health.json"), health)
         n_bad = int(unhealthy.sum())
         if n_bad:
             log(f"WARNING: {n_bad} chain(s) pinned at the dt floor with "
@@ -480,8 +610,8 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
         probe_left = 0 if n_done0 > 0 else int(cfg.meas_probe_sweeps)
         while probe_left > 0:
             n = min(window, probe_left)
-            states, _, acc_w, dH_p = run_seg(params, states, n, Nt_m, dt_m,
-                                             False)
+            states, _, acc_w, dH_p = run_seg(every, states, n, Nt_m, dt_m,
+                                             beta_per_chain, False)
             probe_left -= n
             stage_sweeps["probe"] += n
             acc_p = acc_w.mean(axis=0)
@@ -497,13 +627,12 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                                    else np.float32)
     stage_done("probe")
 
-    # per-point output channels
-    dirs, f_obs, f_trans, stores = [], [], [], []
+    # per-point output channels, rank 0's
+    dirs = [os.path.join(out_root, f"{scan_param}_{v:.6g}") for v in values]
+    f_obs, f_trans, stores = [], [], []
     res_at = n_done0 if n_done0 > 0 else None
-    for v in values:
-        d = os.path.join(out_root, f"{scan_param}_{v:.6g}")
+    for v, d in zip(values if rank == 0 else [], dirs):
         os.makedirs(d, exist_ok=True)
-        dirs.append(d)
         header_o = OBS_HEADER if C == 1 else (
             "Sweep,Chain," + OBS_HEADER.split(",", 1)[1])
         header_t = TRANS_HEADER if C == 1 else (
@@ -518,8 +647,9 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                   "dos_grid": spec.dos_grid(), "Lx": cfg.Lx, "Ly": cfg.Ly,
                   scan_param: v, "eta": spec.eta, "n_chains": C},
             resume_at=res_at))
-    write_json(cfg_path, {**cfg.to_dict(), "scan_param": scan_param,
-                          "values": values.tolist(), "replicas": C})
+    if rank == 0:
+        write_json(cfg_path, {**cfg.to_dict(), "scan_param": scan_param,
+                              "values": values.tolist(), "replicas": C})
     if n_done0 > 0:
         # each point's partial-bin accumulator rides the checkpoint
         for g, st in enumerate(stores):
@@ -536,21 +666,22 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
 
     freq = max(1, cfg.measure_transport_freq)
     n_done = n_done0
-    meas_acc_sum = np.zeros(n_run)
+    meas_acc_sum = np.zeros(n_total)
     meas_acc_n = 0
     meas_dH_chunks = []
     while n_done < cfg.n_measure:
         n = min(freq, cfg.n_measure - n_done)
-        states, seg, acc, dH = run_seg(params, states, n, Nt_m, dt_m, True)
+        states, seg, acc, dH = run_seg(every, states, n, Nt_m, dt_m,
+                                       beta_per_chain, True)
         meas_acc_sum += acc.sum(axis=0)
         meas_acc_n += n
         meas_dH_chunks.append(dH)
         o = seg.observables
-        cols = [_np(x) for x in (
+        cols = _gather_rows(every, [_np(x) for x in (
             o.total_energy, o.delta_amp, o.delta_local, o.delta_global,
             o.S_delta, o.hole_conc, o.delta_diff, o.delta_pair,
-            o.delta_localpair)]
-        for s in range(n):
+            o.delta_localpair)], axis=1, dst=0)
+        for s in range(n if rank == 0 else 0):
             sweep = n_done + 1 + s
             for g in range(G):
                 for c in range(C):
@@ -563,27 +694,30 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
 
         if n_done % freq == 0:
             res = transport_fn(lat, spec, params, states)
-            rho = _np(res.superfluid_stiffness)
-            dc = _np(res.dc_conductivity)
-            oc = _np(res.optical_conductivity)
-            dos = _np(res.dos)
-            dan = _np(res.dos_AN)
-            ak = _np(res.A_k0)
-            for g in range(G):
-                sl = slice(g * C, (g + 1) * C)
-                if C == 1:
-                    f_trans[g].row(n_done, rho[g * C], dc[g * C])
-                else:
-                    for c in range(C):
-                        f_trans[g].row(n_done, c, rho[g * C + c],
-                                       dc[g * C + c])
-                stores[g].add(n_done, {
-                    "opt_cond": oc[sl], "dos": dos[sl],
-                    "dos_AN": dan[sl], "A_k0": ak[sl]})
+            got = _gather_rows(every, [_np(x) for x in (
+                res.superfluid_stiffness, res.dc_conductivity,
+                res.optical_conductivity, res.dos, res.dos_AN, res.A_k0)],
+                axis=0, dst=0)
+            if got is not None:
+                rho, dc, oc, dos, dan, ak = got
+                for g in range(G):
+                    sl = slice(g * C, (g + 1) * C)
+                    if C == 1:
+                        f_trans[g].row(n_done, rho[g * C], dc[g * C])
+                    else:
+                        for c in range(C):
+                            f_trans[g].row(n_done, c, rho[g * C + c],
+                                           dc[g * C + c])
+                    stores[g].add(n_done, {
+                        "opt_cond": oc[sl], "dos": dos[sl],
+                        "dos_AN": dan[sl], "A_k0": ak[sl]})
         if cfg.checkpoint_freq and (n_done % cfg.checkpoint_freq == 0
                                     or n_done >= cfg.n_measure):
-            save_checkpoint(ckpt_path, states, n_done, extra=_ckpt_extra(),
-                            generator=gen)
+            arrays = state_arrays(states)
+            got = _gather_rows(every, list(arrays.values()), axis=0, dst=0)
+            if got is not None:
+                save_checkpoint(ckpt_path, dict(zip(arrays, got)), n_done,
+                                extra=_ckpt_extra(), generator=gen)
         if n_done % 10 == 0:
             log(f"Meas {n_done}/{cfg.n_measure}. "
                 f"Acc={acc.mean():.2f}")
@@ -597,7 +731,7 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
             f"measurement (n_measure={cfg.n_measure} is not a multiple of "
             f"measure_transport_freq={freq}).")
     # --- measurement-phase health ---------------------------------------
-    if meas_acc_n:
+    if meas_acc_n and rank == 0:
         meas_acc = meas_acc_sum / meas_acc_n
         dH_all = np.concatenate(meas_dH_chunks, axis=0)
         # diverged proposals are rejected sweeps but would NaN the median:
@@ -645,7 +779,17 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
                 f"— a reversible sampler at equilibrium cannot sit there "
                 f"(tracked-basis lag bias); re-run with a smaller dt "
                 f"(therm_health.json)")
-    guard = {k: v - guard0[k] for k, v in ph_eigh.GUARD.items()}
+    ranks = gather_objects({
+        "rank": rank, "device": where[rank],
+        "launches": {k: v - launch0[k] for k, v in kernels.LAUNCHES.items()},
+        "ph_guard": {k: v - guard0[k] for k, v in ph_eigh.GUARD.items()},
+        "collectives": COMM["calls"] - comm0["calls"],
+        "collective_seconds": COMM["seconds"] - comm0["seconds"]})
+    # solves and fallbacks are the same on every rank; a chain failing the
+    # guard is counted on the rank that holds it
+    guard = {k: (ranks[0]["ph_guard"][k] if k in ("solves", "fallbacks")
+                 else sum(r["ph_guard"][k] for r in ranks))
+             for k in ph_eigh.GUARD}
     if guard["solves"]:
         log(f"PH anchor: {guard['solves']} guarded solve(s), "
             f"{guard['fallbacks']} fell back to the full eigh (chains "
@@ -655,8 +799,10 @@ def run_scan_vectorized(cfg: RunConfig, values, *, scan_param: str = "T",
     log("Stage seconds: " + ", ".join(
         f"{k} {v:.3f} ({stage_sweeps[k]} sweep(s))"
         for k, v in stage_seconds.items()))
+    log("Ranks: " + json.dumps(ranks))
     log("Scan done.")
-    log.close()
-    return {"dirs": dirs, "values": values.tolist(), "chains": n_run,
+    if tee is not None:
+        tee.close()
+    return {"dirs": dirs, "values": values.tolist(), "chains": n_total,
             "ph_guard": guard, "stage_seconds": stage_seconds,
-            "stage_sweeps": stage_sweeps}
+            "stage_sweeps": stage_sweeps, "world_size": W, "ranks": ranks}

@@ -62,14 +62,19 @@ def segment_functions(cfg: RunConfig, lat, generator: torch.Generator,
     ``n`` sweeps and returns (states, SegmentResult).  Thermalization passes
     ``anchor_every=1`` to the tracked path; ``cfg.anchor_every`` applies
     otherwise.  The host readout anchors every sweep and keeps its
-    potential cache across the calls of one ``seg_fn`` (a resume starts it
-    afresh from the loaded states).  Draws come from ``generator``, or from
-    ``draws`` when given."""
+    potential cache, over the chains this process holds, across the calls
+    of one ``seg_fn`` (a resume starts it afresh from the loaded states).
+    Draws come from ``generator``, or from ``draws`` when given, or from
+    ``seg_fn``'s own ``normals``/``uniforms`` (``parallel/ensemble.
+    RowDraws``); its ``vote`` goes to the guarded anchor, and ``init_fn``
+    takes ``rows``/``vote`` as ``init_ensemble_real`` does."""
     host_cache: dict = {"c": None}
     path = cfg.resolved_path()
 
-    def seg_fn(p, s, n, Nt, dt, measure, anchor_every=None):
-        normals, uniforms = draws(n) if draws is not None else (None, None)
+    def seg_fn(p, s, n, Nt, dt, measure, anchor_every=None, *,
+               normals=None, uniforms=None, vote=None):
+        if normals is None and draws is not None:
+            normals, uniforms = draws(n)
         kw = dict(generator=generator, normals=normals, uniforms=uniforms)
         if path == "complex":
             return run_segment(lat, p, s, n, Nt, dt, measure=measure, **kw)
@@ -80,7 +85,7 @@ def segment_functions(cfg: RunConfig, lat, generator: torch.Generator,
                 ns_steps=cfg.resolved_ns_steps(),
                 rot_dtype=cfg.rot_torch_dtype(),
                 exact_solver=cfg.exact_solver, pot_cache=host_cache["c"],
-                rot_scheme=cfg.rot_scheme, **kw)
+                rot_scheme=cfg.rot_scheme, vote=vote, **kw)
             return s, res
         if cfg.eigh_mode == "tracked":
             return run_segment_tracked(
@@ -90,13 +95,16 @@ def segment_functions(cfg: RunConfig, lat, generator: torch.Generator,
                 cfg.refine_iters, cfg.polish_iters, cfg.resolved_ns_steps(),
                 cfg.rot_torch_dtype(), cfg.exact_solver,
                 cfg.polish_precision, cfg.polish_correction, cfg.rot_scheme,
-                **kw)
+                vote=vote, **kw)
         return run_segment_real(lat, p, s, n, Nt, dt, measure=measure,
                                 eigh_mode=cfg.eigh_mode,
                                 tracked_iters=cfg.tracked_iters, **kw)
 
     if path == "complex":
-        return seg_fn, init_ensemble, ensemble_transport
+        def init_complex(*args, vote=None, **kwargs):
+            return init_ensemble(*args, **kwargs)   # no guarded solve
+
+        return seg_fn, init_complex, ensemble_transport
 
     def init_fn(*args, **kwargs):
         return init_ensemble_real(*args, exact_solver=cfg.exact_solver,

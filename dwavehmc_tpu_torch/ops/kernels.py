@@ -15,6 +15,9 @@ shared library under ``build/kernels/`` beside the package (one ``nvcc -c``
 per source, all started together, then one link) and loaded with ``ctypes``:
 plain C entry points, pointers as ``c_void_p``, launched on PyTorch's current
 stream.  Each C entry returns ``cudaGetLastError()``; a nonzero value raises.
+Object files and the unlinked library carry the process id, and the library
+is renamed into place, so ranks that build a fresh checkout at once do not
+write each other's files.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises.  There is no fallback between the two.  Each
@@ -70,6 +73,12 @@ def _source_tag() -> str:
     return h.hexdigest()[:16]
 
 
+def _object_path(lib_path: Path, src: str) -> Path:
+    """This process's object file of ``src`` for ``lib_path``."""
+    return lib_path.with_name(f"{Path(src).stem}_{lib_path.stem}."
+                              f"{os.getpid()}.o")
+
+
 def build(force: bool = False) -> dict:
     """Compile the kernels (unless an up-to-date library exists and
     ``force`` is false) and load them.  Returns ``{"seconds", "library",
@@ -83,26 +92,33 @@ def build(force: bool = False) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     jobs = []
-    for src in SOURCES:
-        obj = lib_path.with_name(f"{Path(src).stem}_{lib_path.stem}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", str(obj)]
-        jobs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    # wait for every compiler before judging any, so none is left running
-    results = [(src, p, p.communicate()[1]) for src, _obj, p in jobs]
-    ptxas = []
-    for src, proc, err in results:
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{err}")
-        ptxas += [f"{src}: {line.strip()}" for line in err.splitlines()
-                  if "registers" in line or "Compiling entry" in line]
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                           *(str(obj) for _s, obj, _p in jobs)],
-                          capture_output=True, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
-    os.replace(tmp, lib_path)
+    try:
+        for src in SOURCES:
+            obj = _object_path(lib_path, src)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o",
+                   str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # wait for every compiler before judging any, so none is left
+        # running
+        results = [(src, p, p.communicate()[1]) for src, _obj, p in jobs]
+        ptxas = []
+        for src, proc, err in results:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+            ptxas += [f"{src}: {line.strip()}" for line in err.splitlines()
+                      if "registers" in line or "Compiling entry" in line]
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _s, obj, _p in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for _src, obj, _p in jobs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     _lib = _load(lib_path)
     return {"seconds": seconds, "library": str(lib_path), "ptxas": ptxas}
@@ -189,11 +205,14 @@ def rotation_s_parts_cuda(tr, ti, d, smax: float):
 
 def rotation_s_parts(tr, ti, d, smax: float):
     """K1 dispatch: CPU tensors → plain version in their dtype; CUDA
-    tensors → the kernel in float32 (cast as the TPU wrapper casts)."""
+    tensors → the kernel in float32 (cast as the TPU wrapper casts), its
+    result in the inputs' dtype (as JAX promotes the kernel's float32
+    output where a float64 carry uses it)."""
     if tr.device.type == "cpu":
         return rotation_s_parts_plain(tr, ti, d, smax)
     f32 = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
-    return rotation_s_parts_cuda(f32(tr), f32(ti), f32(d), smax)
+    sr, si = rotation_s_parts_cuda(f32(tr), f32(ti), f32(d), smax)
+    return sr.to(tr.dtype), si.to(tr.dtype)
 
 
 # --- K2: weighted Lorentzian sum --------------------------------------------

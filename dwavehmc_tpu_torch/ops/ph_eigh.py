@@ -27,7 +27,9 @@ avoids the inaccurate float32 Jacobi solver at dimension ≤ 512.
 whole batch with ``models/bdg_real.diagonalize_embedding`` when any chain
 fails: one host-side branch on one ``bool``, i.e. one device sync per call.
 That fallback is the JAX package's own semantics (its batch-level
-``lax.cond``); it is counted in ``GUARD``.
+``lax.cond``); it is counted in ``GUARD``.  Under a process group the batch
+is the ensemble of every rank, so the ``bool`` is an all-reduce over ranks
+(``parallel/mesh.any_across_ranks``).
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ import numpy as np
 import torch
 
 from ..models.bdg_real import diagonalize_embedding, symmetric_eigh
+from ..parallel.mesh import any_across_ranks
 
 #: since the last ``reset_guard()``: guarded solves, their fallbacks, and
-#: over the fallbacks the chains that failed the guard — by an unconverged
-#: sign iteration, by a Ritz value under the floor, by a non-finite one
+#: over the fallbacks this process's voting chains that failed the guard —
+#: by an unconverged sign iteration, by a Ritz value under the floor, by a
+#: non-finite one
 GUARD = {"solves": 0, "fallbacks": 0, "resid_failed": 0, "ratio_failed": 0,
          "nonfinite": 0}
 
@@ -267,7 +271,7 @@ def _split_levels(wt: torch.Tensor, Vp: torch.Tensor):
 
 def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
                                      lift_precision: str = "highest",
-                                     orth: str = "chol"):
+                                     orth: str = "chol", vote=None):
     """PH-split diagonalization of a batch with a floor guard.
 
     Falls back to ``diagonalize_embedding`` for the WHOLE batch when any
@@ -276,7 +280,14 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
     smallest Ritz value under PH_GUARD_RATIO·‖M‖∞, or (c) gave a non-finite
     Ritz value.  Only the branch taken is computed.  Non-finite entries of
     M are zeroed first.  Returns ``(evals, X, Y, used_fallback)`` with
-    ``used_fallback`` a Python bool."""
+    ``used_fallback`` a Python bool.
+
+    Under a process group the decision is the any over every rank's chains,
+    so all ranks fall back together, as the JAX package's ``lax.cond`` does
+    over its global batch: every rank must make the same sequence of
+    guarded calls.  ``vote`` (B,) bool marks the chains whose failure
+    counts (None: all); a rank's padded copies and stand-in batches vote
+    False."""
     Mg = _finite_or_zero(M)
     sgn, resid = sign_embedding(Mg, lift_precision=lift_precision,
                                 floor=floor, return_resid=True)
@@ -286,8 +297,10 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
     fails = torch.stack([~(resid < PH_GUARD_RESID),
                          ~(min_ratio > PH_GUARD_RATIO),
                          ~torch.isfinite(wt).all(-1)])
+    if vote is not None:
+        fails = fails & torch.as_tensor(vote, device=fails.device)
     GUARD["solves"] += 1
-    if not bool(fails.any()):
+    if not any_across_ranks(bool(fails.any())):
         return (*_split_levels(wt, Vp), False)
     GUARD["fallbacks"] += 1
     for name, n in zip(("resid_failed", "ratio_failed", "nonfinite"),

@@ -1,11 +1,16 @@
-"""Ensemble runner (port of ``dwavehmc_tpu/parallel/ensemble.py`` without
-its device mesh): the complex path (``init_ensemble``, ``run_segment``,
-``ensemble_transport``), and on the real-pair path the tracked production
-segment, the tracked segment with the host float64 Metropolis readout
-(``run_segment_hostacc``) and the untracked ``run_segment_real``.
+"""Ensemble runner (port of ``dwavehmc_tpu/parallel/ensemble.py``): the
+complex path (``init_ensemble``, ``run_segment``, ``ensemble_transport``),
+and on the real-pair path the tracked production segment, the tracked
+segment with the host float64 Metropolis readout (``run_segment_hostacc``)
+and the untracked ``run_segment_real``.
 
 Chains are the leading dimension of every tensor, so one call of each
-function advances the whole ensemble.  The JAX package splits a tracked
+function advances the whole ensemble, or this rank's block of it.  The
+counterpart of the JAX package's ``mesh=``/``shard_ensemble``: the inits
+take ``rows=``, draw the global ensemble's disorder and Δ in the
+one-process order and keep (and diagonalize) only those rows, and
+``RowDraws`` hands a segment runner its rows of each sweep's global draws
+(``parallel/mesh.py``).  The JAX package splits a tracked
 sweep into separately compiled programs and caps fused sweeps per program
 (``_watchdog_chunk_caps``, ``max_fused``) to work around its TPU runtime;
 PyTorch runs eagerly, so none of that is needed.  What those workarounds
@@ -31,10 +36,11 @@ from ..models.transport import SpectrumResult, measure_transport_and_spectra
 from ..models.transport_real import measure_transport_and_spectra_real
 from ..ops import host_energy
 from ..ops.ph_eigh import diagonalize_embedding_ph_guarded
-from ..sampler.hmc import SweepInfo, hmc_sweep, init_chain_state
+from ..sampler.hmc import SweepInfo, draw_momenta, hmc_sweep, init_chain_state
 from ..sampler.hmc_real import (
     HMCStateReal,
     _exact_diagonalize,
+    draw_init_state,
     hmc_sweep_real,
     init_chain_state_real,
     proposal_embedding,
@@ -52,12 +58,33 @@ class SegmentResult(NamedTuple):
     observables: ObservablesResult | None
 
 
+def _keep_rows(rows, lat, params, generator, n_chains, dtype, n_imp,
+               disorder, delta0_re, delta0_im, device):
+    """(disorder, Δ_re, Δ_im) of chains ``rows`` of an ``n_chains``
+    ensemble, drawn as ``draw_init_state`` draws the whole ensemble."""
+    d, re, im = draw_init_state(lat, params, n_chains, generator=generator,
+                                dtype=dtype, n_imp=n_imp, delta0_re=delta0_re,
+                                delta0_im=delta0_im, disorder=disorder,
+                                device=device)
+    idx = torch.as_tensor(np.asarray(rows), device=d.device)
+    return d[idx], re[idx], im[idx]
+
+
 def init_ensemble(lat: LatticeSpec, params: ModelParams,
                   generator: torch.Generator | None, n_chains: int, *,
                   dtype=torch.float32, n_imp: float = 0.0, delta0=None,
-                  disorder=None, device="cuda") -> HMCState:
+                  disorder=None, rows=None, device="cuda") -> HMCState:
     """``n_chains`` complex-path chains, each with its own disorder
-    realization and Δ start, drawn from ``generator`` unless given."""
+    realization and Δ start, drawn from ``generator`` unless given.
+    ``rows`` (indices, repeats allowed): keep only those chains of the
+    ``n_chains`` drawn."""
+    if rows is not None:
+        d0 = None if delta0 is None else torch.as_tensor(delta0)
+        disorder, re, im = _keep_rows(
+            rows, lat, params, generator, n_chains, dtype, n_imp, disorder,
+            None if d0 is None else d0.real, None if d0 is None else d0.imag,
+            device)
+        delta0, n_chains = torch.complex(re, im), len(rows)
     return init_chain_state(lat, params, n_chains, generator=generator,
                             dtype=dtype, n_imp=n_imp, delta0=delta0,
                             disorder=disorder, device=device)
@@ -100,13 +127,14 @@ def ensemble_transport(lat: LatticeSpec, spec: SpectralSpec,
     return measure_transport_and_spectra(lat, spec, params, states)
 
 
-def _batch_eigs(M: torch.Tensor, exact_solver: str):
+def _batch_eigs(M: torch.Tensor, exact_solver: str, vote=None):
     """Eigenpairs of a batch of embeddings, for the init and the exact
     anchors: "ph" is one floor-guarded PH solve of the whole batch (a chain
     below the solver's floor sends the batch to the full eigh;
-    ``ops/ph_eigh.GUARD`` counts both), "qdwh" the full-embedding eigh."""
+    ``ops/ph_eigh.GUARD`` counts both; ``vote`` as there), "qdwh" the
+    full-embedding eigh."""
     if exact_solver == "ph":
-        return diagonalize_embedding_ph_guarded(M)[:3]
+        return diagonalize_embedding_ph_guarded(M, vote=vote)[:3]
     return _exact_diagonalize(M, exact_solver)
 
 
@@ -116,13 +144,22 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
                        exact_solver: str = "qdwh",
                        init_chunk: int | None = None,
                        disorder=None, delta0_re=None, delta0_im=None,
+                       rows=None, vote=None,
                        device="cuda") -> HMCStateReal:
     """``n_chains`` chains, each with its own disorder realization and Δ
     start, drawn from ``generator`` unless given.  ``init_chunk``:
     diagonalize the initial ensemble in sub-batches of this many chains to
     bound the eigensolver's workspace; each sub-batch is one
     ``_batch_eigs`` call (a cold random-Δ spectrum is where near-zero
-    levels can sit under the PH solver's floor)."""
+    levels can sit under the PH solver's floor).  ``rows`` (indices,
+    repeats allowed): keep, and diagonalize, only those chains of the
+    ``n_chains`` drawn; ``vote`` (one bool per kept chain) as in
+    ``ops/ph_eigh.diagonalize_embedding_ph_guarded``."""
+    if rows is not None:
+        disorder, delta0_re, delta0_im = _keep_rows(
+            rows, lat, params, generator, n_chains, dtype, n_imp, disorder,
+            delta0_re, delta0_im, device)
+        n_chains = len(rows)
     states = init_chain_state_real(
         lat, params, n_chains, generator=generator, dtype=dtype, n_imp=n_imp,
         delta0_re=delta0_re, delta0_im=delta0_im, disorder=disorder,
@@ -131,7 +168,8 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
                                 states.disorder)
     M = assemble_embedding(lat, M_static, states.delta_re, states.delta_im)
     chunk = n_chains if init_chunk is None else max(1, init_chunk)
-    parts = [_batch_eigs(M[i:i + chunk], exact_solver)
+    parts = [_batch_eigs(M[i:i + chunk], exact_solver,
+                         None if vote is None else vote[i:i + chunk])
              for i in range(0, n_chains, chunk)]
     evals, X, Y = (torch.cat(xs) for xs in zip(*parts))
     return states._replace(evals=evals, X=X, Y=Y)
@@ -140,6 +178,44 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
 def _sweep_draws(normals, uniforms, i):
     return (None if normals is None else normals[i],
             None if uniforms is None else uniforms[i])
+
+
+class RowDraws:
+    """One rank's rows of each sweep's draws.  Sweep i draws the standard
+    normals (n_draw, 2, N, 2) and float32 uniforms (n_draw,) of a batch of
+    ``n_draw`` chains from ``generator`` exactly as a segment runner draws
+    them for that batch (``sampler/hmc.draw_momenta``), and keeps the
+    chains ``rows``: so every rank consumes the generator as the
+    one-process run does, and each of its chains gets the draws it gets
+    there.  ``normals``/``uniforms`` go to a runner's arguments of those
+    names; the runner reads sweep i's normals, then its uniforms, sweep
+    after sweep."""
+
+    class _Column:
+        def __init__(self, owner, k):
+            self.owner, self.k = owner, k
+
+        def __getitem__(self, i):
+            return self.owner.sweep(i)[self.k]
+
+    def __init__(self, generator: torch.Generator, n_draw: int, tail: tuple,
+                 dtype, rows, device):
+        self.generator, self.shape = generator, (n_draw, *tail)
+        self.dtype, self.device = dtype, device
+        self.rows = torch.as_tensor(np.asarray(rows), device=device)
+        self._i, self._cur = -1, None
+        self.normals, self.uniforms = self._Column(self, 0), \
+            self._Column(self, 1)
+
+    def sweep(self, i: int):
+        if i != self._i:
+            if i != self._i + 1:
+                raise IndexError(f"draws of sweep {i} asked after sweep "
+                                 f"{self._i}: sweeps are drawn in order")
+            n, u = draw_momenta(self.generator, self.shape, self.dtype,
+                                self.device)
+            self._i, self._cur = i, (n[self.rows], u[self.rows])
+        return self._cur
 
 
 def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
@@ -152,7 +228,7 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
                         polish_correction: bool = False,
                         rot_scheme: str = "ns", *,
                         generator: torch.Generator | None = None,
-                        normals=None, uniforms=None
+                        normals=None, uniforms=None, vote=None
                         ) -> tuple[HMCStateReal, SegmentResult]:
     """``n_sweeps`` tracked sweeps over the ensemble.
 
@@ -163,6 +239,7 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
     call of the proposals' embeddings.  ``dt`` is a scalar
     or a per-chain (B,) step.  Draws: ``normals`` (n_sweeps, B, 2, N, 2) and
     ``uniforms`` (n_sweeps, B), or else from ``generator``, sweep by sweep.
+    ``vote``: the guarded anchor's (``_batch_eigs``).
     """
     accs, dHs, obss = [], [], []
 
@@ -177,7 +254,8 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
             states, info = tracked_accept_cheap(lat, params, states, prop)
         else:
             eig_new = _batch_eigs(
-                proposal_embedding(lat, params, states, prop), exact_solver)
+                proposal_embedding(lat, params, states, prop), exact_solver,
+                vote)
             states, info = tracked_accept(lat, params, states, prop,
                                           eig_new=eig_new)
         accs.append(info.accepted)
@@ -251,7 +329,7 @@ def run_segment_hostacc(lat: LatticeSpec, params: ModelParams,
                         exact_solver: str = "qdwh", pot_cache=None,
                         rot_scheme: str = "ns",
                         generator: torch.Generator | None = None,
-                        normals=None, uniforms=None
+                        normals=None, uniforms=None, vote=None
                         ) -> tuple[HMCStateReal, SegmentResult, dict]:
     """Tracked segment with the host float64 Metropolis readout
     (``ops/host_energy.py``), for β past the float32 wall (β ≳ 3e3).
@@ -268,8 +346,8 @@ def run_segment_hostacc(lat: LatticeSpec, params: ModelParams,
     fingerprint of the chains' identity and state
     (``_hostacc_fingerprint``); it is refreshed on accept, re-fingerprinted
     to the final state on return, and recomputed when the fingerprint does
-    not match.  Pass the returned dict back in across segments.  Draws as
-    in ``run_segment_tracked``.  Returns (states, SegmentResult,
+    not match.  Pass the returned dict back in across segments.  Draws and
+    ``vote`` as in ``run_segment_tracked``.  Returns (states, SegmentResult,
     pot_cache); the recorded ΔH is the host's, in float32."""
     disorder = _np(states.disorder)
     b = disorder.shape[0]
@@ -297,7 +375,7 @@ def run_segment_hostacc(lat: LatticeSpec, params: ModelParams,
                  + pot_cache["pot"]))
         finite = np.isfinite(dH) & np.isfinite(pot_new)
         eig_new = _batch_eigs(proposal_embedding(lat, params, states, prop),
-                              exact_solver)
+                              exact_solver, vote)
         states, info = tracked_accept(lat, params, states, prop,
                                       dH_host=dH.astype(np.float32),
                                       finite_host=finite, eig_new=eig_new)

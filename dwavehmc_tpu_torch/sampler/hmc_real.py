@@ -78,18 +78,15 @@ def _exact_diagonalize(M, solver: str = "qdwh"):
     return diagonalize_embedding(M)
 
 
-def init_chain_state_real(lat: LatticeSpec, params: ModelParams,
-                          n_chains: int, *,
-                          generator: torch.Generator | None = None,
-                          dtype=torch.float32, n_imp: float | None = None,
-                          delta0_re=None, delta0_im=None, disorder=None,
-                          exact_solver: str = "qdwh",
-                          diagonalize: bool = True,
-                          device="cuda") -> HMCStateReal:
-    """B chains with disorder, a small random Δ start and matching exact
-    eigenpairs.  Missing draws come from ``generator``: the disorder
-    permutations first, then the Δ uniforms, (U[0,1) − 0.5)·0.1 for the real
-    and imaginary parts.  ``diagonalize=False`` leaves the eigenpairs zero."""
+def draw_init_state(lat: LatticeSpec, params: ModelParams, n_chains: int,
+                    *, generator: torch.Generator | None = None,
+                    dtype=torch.float32, n_imp: float | None = None,
+                    delta0_re=None, delta0_im=None, disorder=None,
+                    device="cuda"):
+    """(disorder (B, N), Δ_re, Δ_im (B, N, 2)) of B chains on ``device``.
+    Missing draws come from ``generator``: the disorder permutations first,
+    then the Δ uniforms, (U[0,1) − 0.5)·0.1 for the real and imaginary
+    parts."""
     device = resolve_device(device)
     N = lat.n_sites
     if disorder is None:
@@ -108,8 +105,27 @@ def init_chain_state_real(lat: LatticeSpec, params: ModelParams,
     delta0_re = torch.as_tensor(delta0_re, device=device).to(dtype)
     delta0_im = (torch.zeros_like(delta0_re) if delta0_im is None
                  else torch.as_tensor(delta0_im, device=device).to(dtype))
+    return disorder, delta0_re, delta0_im
 
-    dim = 2 * N
+
+def init_chain_state_real(lat: LatticeSpec, params: ModelParams,
+                          n_chains: int, *,
+                          generator: torch.Generator | None = None,
+                          dtype=torch.float32, n_imp: float | None = None,
+                          delta0_re=None, delta0_im=None, disorder=None,
+                          exact_solver: str = "qdwh",
+                          diagonalize: bool = True,
+                          device="cuda") -> HMCStateReal:
+    """B chains with disorder, a small random Δ start (``draw_init_state``)
+    and matching exact eigenpairs.  ``diagonalize=False`` leaves the
+    eigenpairs zero."""
+    device = resolve_device(device)
+    disorder, delta0_re, delta0_im = draw_init_state(
+        lat, params, n_chains, generator=generator, dtype=dtype, n_imp=n_imp,
+        delta0_re=delta0_re, delta0_im=delta0_im, disorder=disorder,
+        device=device)
+
+    dim = 2 * lat.n_sites
     if diagonalize:
         M = assemble_embedding(
             lat, static_embedding(lat, params.t, params.tp, params.mu,

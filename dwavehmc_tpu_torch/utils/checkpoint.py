@@ -13,6 +13,10 @@ load into each other: each lacks the other's random state.
 ``models/bdg_real.diagonalize_embedding`` for the real pair.  A tracked-mode
 resume re-anchors at the checkpoint (statistically equivalent, not
 bit-identical).
+
+A sharded ensemble writes the same file: rank 0 gathers every rank's
+``state_arrays`` (the eigenpairs are not saved) and saves them, and on
+resume each rank loads its ``rows`` and rediagonalizes only those.
 """
 
 from __future__ import annotations
@@ -36,19 +40,27 @@ from .device import resolve_device
 GENERATOR_KEY = "torch_generator_state"
 
 
-def save_checkpoint(path: str, states: HMCState | HMCStateReal,
-                    sweep_idx: int, extra: dict | None = None,
-                    generator: torch.Generator | None = None) -> None:
-    """Write a resumable snapshot of an ensemble (leading chain dim),
-    complex or real-pair, and ``generator``'s state when given.  Atomic:
-    written to a temporary file, then renamed."""
+def state_arrays(states: HMCState | HMCStateReal) -> dict:
+    """What a checkpoint keeps of an ensemble, as numpy: ``delta`` and
+    ``pi`` complex (B, N, 2), ``disorder`` (B, N)."""
     as_np = lambda x: x.detach().cpu().numpy()  # noqa: E731
     if isinstance(states, HMCStateReal):
         delta = as_np(states.delta_re) + 1j * as_np(states.delta_im)
         pi = as_np(states.pi_re) + 1j * as_np(states.pi_im)
     else:
         delta, pi = as_np(states.delta), as_np(states.pi)
-    payload = {"delta": delta, "pi": pi, "disorder": as_np(states.disorder)}
+    return {"delta": delta, "pi": pi, "disorder": as_np(states.disorder)}
+
+
+def save_checkpoint(path: str, states: HMCState | HMCStateReal | dict,
+                    sweep_idx: int, extra: dict | None = None,
+                    generator: torch.Generator | None = None) -> None:
+    """Write a resumable snapshot of an ensemble (leading chain dim),
+    complex or real-pair, or of its ``state_arrays``, and ``generator``'s
+    state when given.  Atomic: written to a temporary file, then
+    renamed."""
+    payload = dict(states if isinstance(states, dict)
+                   else state_arrays(states))
     if generator is not None:
         payload[GENERATOR_KEY] = generator.get_state().numpy()
     payload["sweep_idx"] = np.asarray(sweep_idx)
@@ -62,12 +74,13 @@ def save_checkpoint(path: str, states: HMCState | HMCStateReal,
 def load_checkpoint(path: str, lat: LatticeSpec, params: ModelParams,
                     state_path: str = "complex", *,
                     generator: torch.Generator | None = None,
-                    device="cuda") -> tuple[HMCState | HMCStateReal, int,
-                                            dict]:
+                    rows=None, device="cuda"
+                    ) -> tuple[HMCState | HMCStateReal, int, dict]:
     """(state on ``device``, sweep_idx, extra) with eigenpairs recomputed
     from (disorder, Δ).  ``state_path``: "complex" → HMCState, "real" →
     HMCStateReal.  A saved generator state is restored into ``generator``
-    when both exist.  ``params`` supplies t, t′ and μ."""
+    when both exist.  ``params`` supplies t, t′ and μ.  ``rows`` (indices
+    into the saved ensemble, repeats allowed): load only those chains."""
     if state_path not in ("complex", "real"):
         raise ValueError(f"state_path={state_path!r}: expected 'complex' or "
                          "'real'")
@@ -78,6 +91,9 @@ def load_checkpoint(path: str, lat: LatticeSpec, params: ModelParams,
         gen_state = z[GENERATOR_KEY] if GENERATOR_KEY in z.files else None
         extra = {k[len("extra_"):]: z[k] for k in z.files
                  if k.startswith("extra_")}
+    if rows is not None:
+        rows = np.asarray(rows)
+        delta, pi, disorder = delta[rows], pi[rows], disorder[rows]
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
     dis = t(disorder)
     rdt = dis.dtype

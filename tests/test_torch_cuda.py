@@ -51,6 +51,16 @@ def test_rotation_kernel_matches_plain(cuda, batch, n):
     assert float(sr.diagonal(dim1=-2, dim2=-1).abs().max()) == 0.0
 
 
+def test_rotation_kernel_returns_the_callers_dtype(cuda):
+    """A float64 carry (the tracked path in float64 on the card) gets the
+    float32 kernel's result in float64, as JAX promotes it."""
+    tr, ti, d = (x.double() for x in _rot_inputs(2, 72, cuda))
+    sr, si = kernels.rotation_s_parts(tr, ti, d, 0.1)
+    assert sr.dtype == si.dtype == torch.float64
+    kr, ki = kernels.rotation_s_parts(tr.float(), ti.float(), d.float(), 0.1)
+    assert torch.equal(sr, kr.double()) and torch.equal(si, ki.double())
+
+
 @pytest.mark.parametrize("batch,n_w,M", [(1, 37, 1000), (2, 1, 70000),
                                          (2, 1436, 50000), (1, 5, 0)])
 def test_lorentzian_kernel_matches_plain(cuda, batch, n_w, M):

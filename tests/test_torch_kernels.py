@@ -8,6 +8,10 @@ Lorentzian sum) plain vs the Pallas kernel in interpret mode (rtol 2e-4, as
 ``tests/test_torch_cuda.py``.
 """
 
+import os
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,3 +110,35 @@ def test_launchers_refuse_cpu_tensors():
     omega, de, w2 = (torch.as_tensor(x) for x in _lor_inputs(3, 10, 1))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.weighted_lorentzian_sum_cuda(omega, de, w2, 0.1)
+
+
+def test_build_names_its_files_per_process(tmp_path, monkeypatch):
+    """Ranks building a fresh checkout at once must not share a file: the
+    object files carry the process id, are removed after the link, and the
+    library is renamed into place.  A stand-in compiler writes its ``-o``
+    file and records the command."""
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('x')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "_load", lambda path: path)
+    monkeypatch.setattr(kernels, "_lib", None)
+    info = kernels.build(force=True)
+    lib = Path(info["library"])
+    assert lib.exists() and lib.parent == tmp_path / "kernels"
+    outs = [ln.split(" -o ")[1].split()[0]
+            for ln in calls.read_text().splitlines()]
+    objs = [o for o in outs if o.endswith(".o")]
+    assert len(objs) == len(kernels.SOURCES)
+    assert all(f".{os.getpid()}.o" in o for o in objs)
+    assert not any(Path(o).exists() for o in objs)
+    assert list(lib.parent.iterdir()) == [lib]
+    monkeypatch.setattr(os, "getpid", lambda: 12345)
+    assert all(kernels._object_path(lib, s) != Path(o)
+               for s, o in zip(kernels.SOURCES, objs))
