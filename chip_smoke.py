@@ -62,7 +62,20 @@ Run from the root of a checkout on a machine with one CUDA device.  It
 9. prints the memory estimate of ``utils/memory.py`` for the main path's 8
    chains beside ``torch.cuda.max_memory_allocated`` over
    ``main.segment_K1``;
-10. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+10. runs the clean-limit gate S3 (``drivers/benchmark_clean --fast``, seed
+   0): on the float64 complex path |⟨|Δ_global|⟩ − RHS| < 0.02 and
+   measurement acceptance > 0.5 (``bcs.clean``); on the float32 real path
+   with tracked leapfrog steps finite output and K1's schedule, its gap
+   difference reported (``bcs.clean_real``); ``tracked_eigh`` at (8, 1152,
+   1152) float32, warm from a nearby exact eigenbasis (no fallback,
+   eigenvalues within 1e-5·max|e| of ``full_eigh_from_parts``) and cold from
+   the identity (every chain falls back), n_iter K1 launches each; the β
+   benchmark S4 at 12×12 cut to 2 β (``bcs.beta_scan``); the three
+   post-processing CLIs as subprocesses against the library functions on
+   copies of the scan output (``postprocess.cli``); and the quick tier
+   ``utils/quickcheck.run_quick_suite`` once (``quickcheck``; every other
+   entry point runs under SKIP_QUICK_TESTS=1);
+11. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -1567,6 +1580,265 @@ def scan_serial_phase(dev, power: str) -> dict:
     return launches
 
 
+# --- the clean-limit gate, the β benchmark, tracked_eigh, the CLIs, the gate -
+
+#: the S3 gate on the card: ``benchmark_clean --fast`` (8×8, β = 100,
+#: J = 1.6, 40 + 60 sweeps at Nt 20 / 5), seed 0
+CLEAN_ARGS = ["--fast", "--seed", "0"]
+#: the README's float32 real-path figures for the same gate, taken on a TPU
+#: (not the card's): printed beside the card's for comparison only
+TPU_REAL_CLAIM = {"diff": 0.009, "acceptance": 0.88}
+
+
+def bcs_clean_phases(dev, power: str) -> dict:
+    """``benchmark_clean --fast`` on the card: the float64 complex path must
+    meet the gate (|⟨|Δ_global|⟩ − RHS| < 0.02, acceptance > 0.5, as
+    tests/test_observables.py asks of the same run); then the float32 real
+    path with tracked leapfrog steps, held to finite output and to K1's
+    schedule (``tracked_iters`` launches per leapfrog step).  Its gap
+    difference is reported, not asserted (ROADMAP fault F0: the clean start
+    is degenerate)."""
+    import inspect
+
+    from dwavehmc_tpu_torch.drivers import benchmark_clean as s3
+    from dwavehmc_tpu_torch.sampler.hmc_real import hmc_sweep_real
+
+    def run(extra):
+        ns = s3.resolve_args(s3.parser().parse_args(
+            CLEAN_ARGS + ["--device", dev.type] + extra))
+        res, launches, sec = _counted(
+            lambda: s3.benchmark(ns, log=lambda s: None))
+        run = res.pop("run")
+        check(bool(np.isfinite(run.delta_global).all())
+              and all(np.isfinite(res[k]) for k in ("gap", "rhs", "diff")),
+              f"bcs.clean {extra}: non-finite output")
+        return ns, res, launches, sec
+
+    ns, res, launches, sec = run([])
+    emit({"phase": "bcs.clean", "lattice": [ns.L, ns.L], "beta": ns.beta,
+          "J": ns.J, "dtype": ns.dtype, "path": ns.path, **res,
+          "phase_seconds": sec, "launches": launches, "gpu": power})
+    check(res["diff"] < 0.02, f"bcs.clean: |gap − RHS| = {res['diff']:.6f}"
+          " ≥ 0.02")
+    check(res["acceptance"] > 0.5, f"bcs.clean: acceptance "
+          f"{res['acceptance']:.2f} ≤ 0.5")
+
+    real = ["--path", "real", "--eigh_mode", "tracked", "--dtype", "float32"]
+    ns, res2, launches2, sec2 = run(real)
+    iters = inspect.signature(hmc_sweep_real).parameters[
+        "tracked_iters"].default
+    k1_want = iters * (ns.n_therm * ns.Nt_therm
+                       + ns.n_measure * ns.Nt_measure)
+    emit({"phase": "bcs.clean_real", "lattice": [ns.L, ns.L],
+          "beta": ns.beta, "dtype": ns.dtype, "path": ns.path,
+          "eigh_mode": ns.eigh_mode, **res2, "gate_met": res2["diff"] < 0.02,
+          "tpu_figures_in_readme": TPU_REAL_CLAIM, "phase_seconds": sec2,
+          "launches": launches2, "k1_expected": k1_want, "gpu": power})
+    check(launches2["rotation_s_parts"] == k1_want,
+          f"bcs.clean_real: {launches2['rotation_s_parts']} K1 launches, "
+          f"the schedule implies {k1_want}")
+    check(launches["rotation_s_parts"] == 0, "bcs.clean launched K1")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+#: how far the warm start's state is moved from the state whose exact
+#: eigenbasis it starts from: a normal draw of this size on each Δ component
+TRACKED_MOVE = 1e-3
+#: the warm start's eigenvalues against ``full_eigh_from_parts``, relative to
+#: max|e|: float32 (ε ≈ 6e-8) with room for 2304-dimensional eigh and
+#: rotation round-off
+TRACKED_EIG_RTOL = 1e-5
+
+
+def tracked_eigh_phase(dev, gen, power: str) -> dict:
+    """``tracked_eigh`` at the main path's shape, (8, 1152, 1152) float32:
+    from the exact eigenbasis of a production state (24×24, the production
+    couplings and disorder, the scan's random Δ start) applied to a state
+    moved by ``TRACKED_MOVE``, no chain may fall back and the eigenvalues
+    must agree with ``full_eigh_from_parts`` within ``TRACKED_EIG_RTOL``;
+    from the identity basis every chain must fall back.  Each call makes
+    its n_iter = 3 K1 launches."""
+    from dwavehmc_tpu_torch.models.bdg import static_hamiltonian
+    from dwavehmc_tpu_torch.models.bdg_real import assemble_parts
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.ops.tracked_eigh import (
+        full_eigh_from_parts, tracked_eigh)
+    from dwavehmc_tpu_torch.sampler.hmc_real import draw_init_state
+
+    lat = LatticeSpec(L_MAIN, L_MAIN)
+    params = make_params(dtype=torch.float32, device=dev, **PHYS)
+    dis, dre, dim = draw_init_state(lat, params, N_CHAINS, generator=gen,
+                                    device=dev)
+    Hs = static_hamiltonian(lat, params.t, params.tp, params.mu, dis)
+    _, X0, Y0 = full_eigh_from_parts(*assemble_parts(lat, Hs, dre, dim))
+    move = TRACKED_MOVE * torch.randn((2,) + tuple(dre.shape), generator=gen,
+                                      device=dev)
+    hr, hi = assemble_parts(lat, Hs, dre + move[0], dim + move[1])
+    e_full = full_eigh_from_parts(hr, hi)[0]
+    M = torch.cat([torch.cat([hr, -hi], -1), torch.cat([hi, hr], -1)], -2)
+    e64 = torch.linalg.eigvalsh(M.double())[..., ::2]
+    scale = float(e_full.abs().max())
+    n_iter = 3
+
+    (e, X, Y, bad), launches, sec = _counted(
+        lambda: tracked_eigh(hr, hi, X0, Y0, n_iter=n_iter))
+    U = torch.complex(X, Y)
+    eye = torch.eye(U.shape[-1], dtype=U.dtype, device=dev)
+    warm = {"fell_back": bad.tolist(),
+            "max_abs_err_vs_full_eigh": float((e - e_full).abs().max()),
+            "max_abs_err_vs_float64": float((e.double() - e64).abs().max()),
+            "orthonormality": float((U.mH @ U - eye).abs().max()),
+            "launches": launches, "seconds": sec,
+            "ms": event_ms(lambda: tracked_eigh(hr, hi, X0, Y0,
+                                                n_iter=n_iter))}
+    ident = torch.eye(hr.shape[-1], device=dev).expand_as(hr)
+    (e2, _, _, bad2), launches2, sec2 = _counted(
+        lambda: tracked_eigh(hr, hi, ident, torch.zeros_like(hr),
+                             n_iter=n_iter))
+    cold = {"fell_back": bad2.tolist(),
+            "max_abs_err_vs_full_eigh": float((e2 - e_full).abs().max()),
+            "launches": launches2, "seconds": sec2}
+    emit({"phase": "tracked_eigh", "shape": list(hr.shape),
+          "dtype": "float32", "n_iter": n_iter, "tol": 1e-4,
+          "move": TRACKED_MOVE, "scale": scale, "warm": warm, "cold": cold,
+          "full_eigh_from_parts_ms": event_ms(
+              lambda: full_eigh_from_parts(hr, hi)),
+          "full_eigh_max_abs_err_vs_float64": float(
+              (e_full.double() - e64).abs().max()), "gpu": power})
+    check(not bool(bad.any()), f"tracked_eigh warm start fell back on "
+          f"chains {bad.nonzero().flatten().tolist()}")
+    check(warm["max_abs_err_vs_full_eigh"] <= TRACKED_EIG_RTOL * scale,
+          f"tracked_eigh warm start: eigenvalues "
+          f"{warm['max_abs_err_vs_full_eigh']:.3g} from the full eigh's")
+    check(bool(bad2.all()), "tracked_eigh from the identity basis: chains "
+          f"{(~bad2).nonzero().flatten().tolist()} did not fall back")
+    check(cold["max_abs_err_vs_full_eigh"] <= TRACKED_EIG_RTOL * scale,
+          "tracked_eigh cold start: eigenvalues off the full eigh's")
+    for name, got in (("warm", launches), ("cold", launches2)):
+        check(got["rotation_s_parts"] == n_iter,
+              f"tracked_eigh {name}: {got['rotation_s_parts']} K1 launches, "
+              f"expected {n_iter}")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def bcs_beta_scan_phase(dev, power: str) -> dict:
+    """``benchmark_beta_scan`` at its 12×12 width, float64 complex path, cut
+    to 2 β (1 and 5000, its grid's ends) and 2 + 3 sweeps at Nt = 10: the
+    CSV's columns and finite values."""
+    from dwavehmc_tpu_torch.drivers import benchmark_beta_scan as s4
+
+    out = os.path.join(REPO, "build", "bcs_smoke", "benchmark_beta_scan.csv")
+    argv = ["--n_beta", "2", "--n_therm", "2", "--n_measure", "3",
+            "--device", dev.type, "--out", out]
+    rows, launches, sec = _counted(lambda: s4.main(argv))
+    header, vals = _csv_rows(out)
+    emit({"phase": "bcs.beta_scan", "lattice": [12, 12], "argv": argv[:6],
+          "header": header, "rows": vals.tolist(), "seconds": sec,
+          "launches": launches, "gpu": power})
+    check(header == s4.CSV_HEADER, f"bcs.beta_scan: header {header!r}")
+    check(vals.shape == (2, 7), f"bcs.beta_scan: rows {vals.shape}")
+    check(bool(np.isfinite(vals).all()), "bcs.beta_scan: non-finite value")
+    check(np.allclose(vals[:, 0], [1.0, 5000.0]), "bcs.beta_scan: β grid")
+    return launches
+
+
+def _python_m(module: str, argv: list) -> str:
+    """``python -m module argv`` from the checkout; its standard output."""
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"{module} exited {out.returncode}:\n"
+          f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def _tree(top: str) -> dict:
+    """Relative path → bytes of every file under ``top``."""
+    out = {}
+    for d, _, files in os.walk(top):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), top)] = fh.read()
+    return out
+
+
+def postprocess_cli_phase(power: str) -> None:
+    """The three post-processing CLIs as subprocesses on a copy of the
+    ``scan.vectorized`` output (resumed, 6 measurement sweeps), against the
+    library functions on another copy: every file equal.  The merge takes
+    as donor 2 points of ``scan.sharded``'s one-process run (same T
+    grid)."""
+    import shutil
+
+    from dwavehmc_tpu_torch.drivers import merge_scan_points as merge_cli
+    from dwavehmc_tpu_torch.drivers.postprocess import (
+        batch_process_spectra, summarize_scan)
+
+    base = os.path.join(REPO, "build", "scan_smoke")
+    work = os.path.join(REPO, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    lib, cli = os.path.join(work, "lib"), os.path.join(work, "cli")
+    for d in (lib, cli):
+        shutil.copytree(os.path.join(base, "tracked"), d)
+    donor = os.path.join(work, "donor")
+    shutil.copytree(os.path.join(base, "sharded_one"), donor)
+    points = sorted(p for p in os.listdir(donor) if p.startswith("T_"))
+    keep = points[:1] + points[-1:]
+    for p in points:
+        if p not in keep:
+            shutil.rmtree(os.path.join(donor, p))
+
+    t0 = time.perf_counter()
+    res = batch_process_spectra(lib, "T_*")
+    check(not res["failed"], f"postprocess: library failed on "
+          f"{res['failed']}")
+    out = _python_m("dwavehmc_tpu_torch.drivers.process_spectra",
+                    [cli, "--batch", "--pattern", "T_*"])
+    check("FAILED" not in out, f"process_spectra CLI:\n{out}")
+    summarize_scan(lib, "T_", "T")
+    _python_m("dwavehmc_tpu_torch.drivers.summarize_scan",
+              [cli, "--prefix", "T_", "--name", "T"])
+    a, b = _tree(lib), _tree(cli)
+    check(a == b, "postprocess CLIs: files differ from the library's: "
+          f"{sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))}")
+    n_processed = sum("processed_" in k for k in a)
+    note = "smoke: 2 points of the one-process sharded-argv run"
+    merge_cli.merge(lib, donor, "T", note)
+    _python_m("dwavehmc_tpu_torch.drivers.merge_scan_points",
+              ["--target", cli, "--donor", donor, "--param", "T",
+               "--note", note])
+    a, b = _tree(lib), _tree(cli)
+    check(a == b, "merge_scan_points CLI: files differ from the library's: "
+          f"{sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))}")
+    prov = json.loads(a["provenance.json"])
+    check(sorted(prov["points"]) == keep, f"merge: provenance {prov}")
+    emit({"phase": "postprocess.cli", "points": len(points),
+          "processed_files": n_processed, "merged_points": keep,
+          "files_compared": len(a), "seconds": time.perf_counter() - t0,
+          "gpu": power})
+
+
+def quickcheck_phase(power: str) -> None:
+    """``utils/quickcheck.run_quick_suite`` once on the card (the CUDA tier
+    under ``--noconftest``): it must pass.  Every other launch of an entry
+    point in this script runs under SKIP_QUICK_TESTS=1."""
+    from dwavehmc_tpu_torch.utils.quickcheck import (
+        QUICK_TESTS, run_quick_suite)
+
+    torch.cuda.empty_cache()
+    skip = os.environ.pop("SKIP_QUICK_TESTS", None)
+    t0 = time.perf_counter()
+    try:
+        run_quick_suite(REPO)
+    except SystemExit as e:
+        check(False, f"quickcheck: {e}")
+    finally:
+        if skip is not None:
+            os.environ["SKIP_QUICK_TESTS"] = skip
+    emit({"phase": "quickcheck", "tests": list(QUICK_TESTS),
+          "seconds": time.perf_counter() - t0, "gpu": power})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1577,6 +1849,8 @@ def main(argv=None) -> int:
         return 2
     from dwavehmc_tpu_torch.ops import kernels
 
+    # only quickcheck_phase runs the quick tier; no driver launch may
+    os.environ["SKIP_QUICK_TESTS"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1623,6 +1897,13 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in scan_beta_phase(dev, power, W).items():
         launches[name] += n
+    for counts in (bcs_clean_phases(dev, power),
+                   tracked_eigh_phase(dev, gen, power),
+                   bcs_beta_scan_phase(dev, power)):
+        for name, n in counts.items():
+            launches[name] += n
+    postprocess_cli_phase(power)
+    quickcheck_phase(power)
     profile_phase(dev, args.seed, power)
 
     rows = [

@@ -38,6 +38,7 @@ from ..parallel.mesh import (
     world,
 )
 from ..utils.config import RunConfig, add_cli_args, from_namespace
+from ..utils.quickcheck import run_quick_suite
 
 
 def parser() -> argparse.ArgumentParser:
@@ -102,4 +103,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    run_quick_suite()
     main(sys.argv[1:])

@@ -21,6 +21,7 @@ import sys
 from .batch_scan_T import run_grid
 from .scan import default_beta_grid
 from ..utils.config import RunConfig, add_cli_args
+from ..utils.quickcheck import run_quick_suite
 
 
 def parser() -> argparse.ArgumentParser:
@@ -52,4 +53,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    run_quick_suite()
     main(sys.argv[1:])

@@ -118,3 +118,34 @@ def sample_disorder(lat: LatticeSpec, W: float, n_imp: float, n_chains: int,
     pot = torch.zeros((n_chains, N), dtype=dtype, device=device)
     pot.scatter_(1, perm[:, :n_sites_imp], float(W))
     return pot
+
+
+def init_delta(lat: LatticeSpec, n_chains: int, *,
+               generator: torch.Generator | None = None, scale=0.1,
+               uniforms=None, dtype=torch.float32,
+               device="cuda") -> torch.Tensor:
+    """(B, N, 2) small random complex start (U[0,1)² − (0.5+0.5i))·scale.
+
+    The uniforms (B, 2, N, 2) hold the real parts first, then the imaginary
+    ones, as the JAX package draws them per chain; ``uniforms`` injects
+    them, otherwise they come from ``generator``."""
+    device = resolve_device(device)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("init_delta needs generator= or uniforms=")
+        uniforms = torch.rand((n_chains, 2, lat.n_sites, 2),
+                              generator=generator, dtype=dtype,
+                              device=generator.device)
+    u = torch.as_tensor(uniforms, device=device).to(dtype) - 0.5
+    return torch.complex(u[:, 0], u[:, 1]).to(complex_dtype_of(dtype)) * scale
+
+
+def uniform_dwave_delta(lat: LatticeSpec, amp=0.2, *, n_chains: int = 1,
+                        dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """(B, N, 2) uniform d-wave start Δx = +amp, Δy = −amp."""
+    device = resolve_device(device)
+    d = torch.zeros((n_chains, lat.n_sites, 2), dtype=complex_dtype_of(dtype),
+                    device=device)
+    d[..., 0] = amp
+    d[..., 1] = -amp
+    return d

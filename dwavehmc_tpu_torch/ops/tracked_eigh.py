@@ -9,7 +9,9 @@ rotations refine it:
     S = damped rotation generator from T  (kernel K1, ops/kernels.py)
     U ← orthonormalize(U·(I+S)) or U·(I+S+S²/2)   (Newton–Schulz)
 
-Complex matrices are real (re, im) pairs.  ``precision=None`` keeps the JAX
+``tracked_eigh`` adds the per-chain residual check and the exact
+fallback; the leapfrog uses ``tracked_eigh_nofallback`` and re-anchors
+once per sweep instead.  Complex matrices are real (re, im) pairs.  ``precision=None`` keeps the JAX
 package's 3-multiplication complex product and any other value its
 4-multiplication form; both run as IEEE float32 products on the card (TF32
 is off, see the package docstring).
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.bdg_real import diagonalize_embedding
 from .kernels import rotation_s_parts
 
 #: per-entry rotation cap (exact 2×2 Jacobi angle is ≤ π/4; damping keeps
@@ -179,3 +182,48 @@ def tracked_eigh_nofallback(hr, hi, ur0, ui0, *, n_iter: int = 6,
     if eval_correction:
         d = rayleigh_corrected_evals(tr, ti, d)
     return d, ur, ui, res
+
+
+def _sort_by_evals(d, ur, ui):
+    """Eigenvalues ascending per chain, the basis columns in the same order
+    (a stable sort, as ``jnp.argsort``)."""
+    order = torch.argsort(d, dim=-1, stable=True)
+    cols = order[..., None, :].expand_as(ur)
+    return (torch.gather(d, -1, order), torch.gather(ur, -1, cols),
+            torch.gather(ui, -1, cols))
+
+
+def full_eigh_from_parts(hr, hi):
+    """Exact solver: the real-symmetric embedding [[hr, −hi], [hi, hr]] of
+    H = hr + i·hi through ``models/bdg_real.diagonalize_embedding`` (its
+    ``symmetric_eigh`` diagonalizes float32 of dimension ≤ 512 in float64 on
+    the card), keeping every second eigenpair as the JAX package does
+    (``V[..., ::2]``, ROADMAP fault F0).  A non-finite entry is zeroed in
+    the matrix handed to the eigh, as ``sampler/hmc.leapfrog`` does:
+    ``torch.linalg.eigh`` raises on NaN where JAX's returns NaN."""
+    M = torch.cat([torch.cat([hr, -hi], dim=-1),
+                   torch.cat([hi, hr], dim=-1)], dim=-2)
+    return diagonalize_embedding(
+        torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+
+
+def tracked_eigh(hr, hi, ur0, ui0, *, n_iter: int = 3, tol: float = 1e-4):
+    """Eigendecomposition of H = hr + i·hi (B, n, n) warm-started at
+    U₀ = ur0 + i·ui0: ``n_iter`` tracked rotations (one K1 launch each on
+    the card), then the residual check per chain.  A chain whose
+    off-diagonal residual exceeds ``tol`` relative to its spectral scale
+    max|d| takes ``full_eigh_from_parts``; the others keep the tracked basis
+    with the eigenvalues sorted.  Returns (evals ascending, Ur, Ui,
+    used_fallback (B,) bool).  A chain with a non-finite residual does not
+    fall back, as in the JAX package (NaN > x is false)."""
+    ur, ui = ur0, ui0
+    for _ in range(n_iter):
+        ur, ui = tracked_step(hr, hi, ur, ui)
+    _, _, d, res = _project_T(hr, hi, ur, ui)
+
+    scale = torch.clamp(torch.amax(torch.abs(d), dim=-1), min=1e-30)
+    bad = res > tol * scale
+    evals, Ur, Ui = _sort_by_evals(d, ur, ui)
+    if bool(bad.any()):
+        evals[bad], Ur[bad], Ui[bad] = full_eigh_from_parts(hr[bad], hi[bad])
+    return evals, Ur, Ui, bad

@@ -26,7 +26,13 @@ from ..models.bdg_real import (
     static_embedding,
 )
 from ..models.lattice import LatticeSpec
-from ..models.params import ModelParams, chain_view, sample_disorder
+from ..models.params import (
+    HMCState,
+    ModelParams,
+    chain_view,
+    init_delta,
+    sample_disorder,
+)
 from ..ops.forces_real import hmc_forces_real
 from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
@@ -48,6 +54,15 @@ class HMCStateReal(NamedTuple):
     evals: torch.Tensor       # (B, 2N)
     X: torch.Tensor           # (B, 2N, 2N)
     Y: torch.Tensor           # (B, 2N, 2N)
+
+
+def from_complex_state(state: HMCState) -> HMCStateReal:
+    """The real-pair layout of a complex-path ``HMCState``."""
+    return HMCStateReal(
+        delta_re=state.delta.real, delta_im=state.delta.imag,
+        pi_re=state.pi.real, pi_im=state.pi.imag,
+        disorder=state.disorder, evals=state.evals,
+        X=state.evecs.real, Y=state.evecs.imag)
 
 
 class Proposal(NamedTuple):
@@ -85,10 +100,8 @@ def draw_init_state(lat: LatticeSpec, params: ModelParams, n_chains: int,
                     device="cuda"):
     """(disorder (B, N), Δ_re, Δ_im (B, N, 2)) of B chains on ``device``.
     Missing draws come from ``generator``: the disorder permutations first,
-    then the Δ uniforms, (U[0,1) − 0.5)·0.1 for the real and imaginary
-    parts."""
+    then the Δ uniforms of ``models/params.init_delta``."""
     device = resolve_device(device)
-    N = lat.n_sites
     if disorder is None:
         frac = float(params.n_imp) if n_imp is None else float(n_imp)
         disorder = sample_disorder(lat, float(params.W), frac, n_chains,
@@ -99,9 +112,9 @@ def draw_init_state(lat: LatticeSpec, params: ModelParams, n_chains: int,
         if generator is None:
             raise ValueError("init_chain_state_real needs generator= or "
                              "delta0_re=")
-        u = torch.rand((n_chains, 2, N, 2), generator=generator,
-                       dtype=dtype, device=generator.device).to(device) - 0.5
-        delta0_re, delta0_im = 0.1 * u[:, 0], 0.1 * u[:, 1]
+        d0 = init_delta(lat, n_chains, generator=generator, dtype=dtype,
+                        device=device)
+        delta0_re, delta0_im = d0.real.contiguous(), d0.imag.contiguous()
     delta0_re = torch.as_tensor(delta0_re, device=device).to(dtype)
     delta0_im = (torch.zeros_like(delta0_re) if delta0_im is None
                  else torch.as_tensor(delta0_im, device=device).to(dtype))

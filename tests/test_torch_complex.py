@@ -17,7 +17,7 @@ from dwavehmc_tpu.models import bdg as jbdg
 from dwavehmc_tpu.models import observables as jobs
 from dwavehmc_tpu.models.lattice import LatticeSpec as JLat
 from dwavehmc_tpu.models.params import make_params as jmake_params
-from dwavehmc_tpu.models.params import uniform_dwave_delta
+from dwavehmc_tpu.models.params import uniform_dwave_delta as juniform_dwave
 from dwavehmc_tpu.ops import eigh as jeigh
 from dwavehmc_tpu.ops import forces as jforces
 from dwavehmc_tpu.ops import spectral as jspec
@@ -26,6 +26,7 @@ from dwavehmc_tpu.sampler import hmc as jhmc
 from dwavehmc_tpu_torch.models import bdg as tbdg
 from dwavehmc_tpu_torch.models.lattice import LatticeSpec as TLat
 from dwavehmc_tpu_torch.models.observables import measure_observables
+from dwavehmc_tpu_torch.models.params import uniform_dwave_delta
 from dwavehmc_tpu_torch.ops import forces as tforces
 from dwavehmc_tpu_torch.ops import spectral as tspec
 from dwavehmc_tpu_torch.parallel import ensemble as tens
@@ -82,7 +83,8 @@ def _jax_state(kind):
     jp = jmake_params(W=0.0, n_imp=0.0, beta=BETA, J=1.0, dtype=jnp.float64)
     return jp, jens.init_ensemble(
         JL, jp, jax.random.PRNGKey(8), 1, dtype=jnp.float64, n_imp=0.0,
-        delta0=uniform_dwave_delta(JL, 0.2, jnp.float64))
+        delta0=_np(uniform_dwave_delta(TL, 0.2, dtype=torch.float64,
+                                       device="cpu"))[0])
 
 
 @pytest.fixture(scope="module", params=["disordered", "degenerate"])
@@ -96,6 +98,10 @@ def test_degenerate_state_is_degenerate(ensemble):
     kind, _, js, _, _ = ensemble
     gaps = np.diff(np.asarray(js.evals), axis=-1)
     if kind == "degenerate":
+        # the port's uniform d-wave start, which built it, is the JAX one
+        np.testing.assert_array_equal(
+            np.asarray(js.delta)[0], np.asarray(juniform_dwave(JL, 0.2,
+                                                               jnp.float64)))
         assert (gaps < 1e-10).sum() > 4          # many degenerate levels
         assert np.abs(np.asarray(js.evals)).min() > 1e-3   # none at zero
     else:

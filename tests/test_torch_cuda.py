@@ -312,3 +312,74 @@ def test_complex_transport_launches_k2_twice_and_matches_plain(
                 b.abs().max()), name
         else:
             assert torch.equal(a, b), name
+
+
+def _tracked_problem(L, B, seed, move):
+    """(hr, hi, ur0, ui0) float64 on the CPU: B disordered chains at a
+    random Δ, H moved by ``move`` in Δ away from the exact eigenbasis U₀."""
+    from dwavehmc_tpu_torch.models.bdg import static_hamiltonian
+    from dwavehmc_tpu_torch.models.bdg_real import assemble_parts
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import init_delta, make_params
+    from dwavehmc_tpu_torch.ops.tracked_eigh import full_eigh_from_parts
+
+    lat = LatticeSpec(L, L)
+    g = torch.Generator().manual_seed(seed)
+    p = make_params(dtype=torch.float64, device="cpu")
+    dis = (torch.rand(B, lat.n_sites, generator=g, dtype=torch.float64)
+           < 0.05).double()
+    d = init_delta(lat, B, generator=g, scale=0.4, dtype=torch.float64,
+                   device="cpu")
+    Hs = static_hamiltonian(lat, p.t, p.tp, p.mu, dis)
+    _, ur0, ui0 = full_eigh_from_parts(*assemble_parts(lat, Hs, d.real,
+                                                       d.imag))
+    d = d + move * torch.randn(d.shape, generator=g, dtype=torch.complex128)
+    hr, hi = assemble_parts(lat, Hs, d.real, d.imag)
+    return hr, hi, ur0, ui0
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_tracked_eigh_on_the_card_matches_the_cpu(cuda, cold):
+    """``tracked_eigh`` in float32 on the card: n_iter K1 launches, the
+    CPU's fallback decisions (none from the exact basis of a nearby state;
+    every chain from the identity), and eigenvalues and orthonormality as
+    close to the CPU's float64 run as the CPU's own float32 run is (or 2e-5
+    and 1e-4)."""
+    from dwavehmc_tpu_torch.ops.tracked_eigh import tracked_eigh
+
+    hr, hi, ur0, ui0 = _tracked_problem(6, 3, 11, 1e-3)
+    if cold:
+        ur0 = torch.eye(hr.shape[-1], dtype=hr.dtype).expand_as(hr)
+        ui0 = torch.zeros_like(hr)
+    want = tracked_eigh(hr, hi, ur0, ui0)
+    cpu32 = tracked_eigh(*(x.float() for x in (hr, hi, ur0, ui0)))
+    before = kernels.LAUNCHES["rotation_s_parts"]
+    got = tracked_eigh(*(x.float().to(cuda) for x in (hr, hi, ur0, ui0)))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rotation_s_parts"] == before + 3
+    assert got[3].tolist() == want[3].tolist() == cpu32[3].tolist() == [cold] * 3
+    cpu_err = float((cpu32[0].double() - want[0]).abs().max())
+    err = float((got[0].double().cpu() - want[0]).abs().max())
+    assert err <= max(4.0 * cpu_err, 2e-5), (err, cpu_err)
+
+    def orth(ur, ui):
+        U = torch.complex(ur, ui).to(torch.complex128)
+        eye = torch.eye(U.shape[-1], dtype=U.dtype, device=U.device)
+        return float((U.mH @ U - eye).abs().max())
+
+    # the fallback keeps V[..., ::2] of a float32 eigh (fault F0): its basis
+    # is held to the CPU's float32 orthonormality, not to a fixed bound
+    assert orth(got[1], got[2]) <= max(4.0 * orth(cpu32[1], cpu32[2]), 1e-4)
+
+
+def test_clean_benchmark_gate_passes_on_the_card(capsys):
+    """S3 ``--fast`` on the card, float64 complex path: the gap equation
+    holds to < 0.02 and the measurement acceptance is above 0.5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dwavehmc_tpu_torch.drivers import benchmark_clean
+
+    res = benchmark_clean.benchmark(benchmark_clean.parser().parse_args(
+        ["--fast", "--device", "cuda"]), log=lambda s: None)
+    assert res["passed"] and res["diff"] < 0.02, res["diff"]
+    assert res["acceptance"] > 0.5, res["acceptance"]
