@@ -75,7 +75,23 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    copies of the scan output (``postprocess.cli``); and the quick tier
    ``utils/quickcheck.run_quick_suite`` once (``quickcheck``; every other
    entry point runs under SKIP_QUICK_TESTS=1);
-11. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+11. validates the fast tracked configuration and the precision modes below
+   "highest": ``bench_ph_eigh`` at (8, 2304, 2304) with the PH lift at
+   "highest", "high" (three TF32 passes: eigenvalue error within 10× the
+   "highest" lift's, the guard's residual under its threshold) and
+   "default" (one TF32 pass, reported) (``anchor.ph_lift``);
+   ``validate_cheap_anchor`` at 24×24 (K = 10, refine 6 / polish 3, exp2,
+   the PH anchor) with bf16 and with float32 rotations: the paired gate
+   max |dH_cheap − dH_exact| < 0.1 and K1's schedule
+   (``validate.cheap_anchor``) and one proposal of each dtype against a
+   float64 recomputation (``validate.cheap_anchor.trajectory``);
+   ``ab_polish``'s "highest" and "high" polish, and "default"
+   (``validate.polish``); ``validate_beta_extreme`` at 12×12, β =
+   1e4 and 1e5, with the host readout, every dH finite and both kernels
+   launched (``validate.beta_extreme``); ``probe_beta_dt`` and
+   ``tune_Nt_efficiency`` (``validate.beta_dt``, ``tune.Nt``); counts are
+   reset before and read after each;
+12. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -204,12 +220,15 @@ def main_config(dev):
     return lat, production_spec(lat), temps, params, dt
 
 
-def expected_rotations(n_sweeps: int, K: int, nt: int = NT) -> int:
+def expected_rotations(n_sweeps: int, K: int, nt: int = NT,
+                       tracked: int = TRACK["tracked_iters"],
+                       refine: int = TRACK["refine_iters"],
+                       polish: int = TRACK["polish_iters"]) -> int:
     """K1 launches of one segment of ``nt``-step sweeps: every tracked
     rotation is one batched launch; cheap sweeps add the endpoint refine
     and polish rotations."""
-    per_step = nt * TRACK["tracked_iters"]
-    cheap = per_step + TRACK["refine_iters"] + TRACK["polish_iters"]
+    per_step = nt * tracked
+    cheap = per_step + refine + polish
     total, done = 0, 0
     while done < n_sweeps:
         k = min(K, n_sweeps - done)
@@ -1839,6 +1858,324 @@ def quickcheck_phase(power: str) -> None:
           "seconds": time.perf_counter() - t0, "gpu": power})
 
 
+# --- the fast tracked configuration and the tools that validate it ----------
+
+#: ``validate_cheap_anchor`` at the JAX package's 24×24 configuration
+#: (examples/cheap_anchor_validation_exp2_24x24.json: β = 10, J = 0.8, Nt = 6,
+#: K = 10, refine 6 / polish 3, exp2, the PH anchor, dt × 0.6) at the batch
+#: of 8 this script runs at 24×24 (64 there), its depth cut from 8 therm,
+#: 3 paired and 30 equilibrium sweeps to 6, 4 and 10 (after 2 therm sweeps
+#: most chains have accepted nothing yet, and float32 trajectories from
+#: there are rejected)
+CHEAP_ANCHOR_ARGS = [
+    "--L", str(L_MAIN), "--batch", str(N_CHAINS), "--beta", "10", "--J",
+    "0.8", "--Nt", "6", "--anchor_every", "10", "--tracked_iters", "6",
+    "--refine_iters", "6", "--polish_iters", "3", "--rot_scheme", "exp2",
+    "--exact_solver", "ph", "--dt_factor", "0.6", "--therm", "6",
+    "--paired", "4", "--sweeps", "10"]
+#: the JAX package's paired bias max |dH_cheap − dH_exact| with bf16
+#: rotations, measured on a TPU (not the card's; printed for comparison):
+#: examples/cheap_anchor_validation_bf16.json (16×16) and the filtered
+#: 24×24 figure its exp2_24x24 artifact quotes
+TPU_PAIRED_BIAS = {"16x16": 1.2e-3, "24x24": 0.0165}
+
+
+def cheap_anchor_rotations(ns, n_therms: int) -> int:
+    """K1 launches of one ``validate_cheap_anchor`` run: ``n_therms``
+    thermalizations (exact-anchored sweeps at Nt = 20), the paired
+    proposals (each with the endpoint refine and polish), and the K = 1 and
+    K = K equilibrium segments."""
+    from dwavehmc_tpu_torch.drivers.validate_cheap_anchor import NT_THERM
+
+    track = dict(tracked=ns.tracked_iters, refine=ns.refine_iters,
+                 polish=ns.polish_iters)
+    therm = expected_rotations(ns.therm, 1, NT_THERM, **track)
+    paired = ns.paired * (ns.Nt * ns.tracked_iters + ns.refine_iters
+                          + ns.polish_iters)
+    return (n_therms * therm + paired
+            + expected_rotations(ns.sweeps, 1, ns.Nt, **track)
+            + expected_rotations(ns.sweeps, ns.anchor_every, ns.Nt, **track))
+
+
+def validate_cheap_anchor_phase(dev, power: str) -> dict:
+    """``validate_cheap_anchor`` at 24×24 with bf16 rotations, then with
+    float32 ones, from the same initial state and draws (the float32 run
+    reuses the bf16 run's two thermalizations, which the rotation dtype
+    does not enter): the paired gate max |ΔdH| < 0.1 over the compared
+    pairs (finite on both sides by construction), finite observables, and
+    K1's schedule.  The equilibrium shifts over SEM are reported, not
+    asserted, at this depth.  Then ``trajectory_dtype_check``, outside the
+    counted windows."""
+    from dwavehmc_tpu_torch.drivers import validate_cheap_anchor as vca
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    total, cache = None, {}
+    for rot in ("bfloat16", None):
+        ns = vca.parser().parse_args(
+            CHEAP_ANCHOR_ARGS + ["--device", dev.type]
+            + (["--rot_dtype", rot] if rot else []))
+        gen = torch.Generator(device=dev).manual_seed(vca.SEED)
+        init, stream = vca.initial_draws(vca.setup(ns), ns, gen)
+        n_therms = 2 - len(cache)
+        ph_eigh.reset_guard()
+        (report, audit), launches, sec = _counted(lambda: vca.validate(
+            ns, init=init, stream=stream, cache=cache,
+            log=lambda m: print(m, file=sys.stderr)))
+        eq = report["equilibrium"]
+        k1_want = cheap_anchor_rotations(ns, n_therms)
+        emit({"phase": "validate.cheap_anchor", "rot_dtype": rot or "float32",
+              "config": report["config"], "paired_dH": report["paired_dH"],
+              "gate": vca.MAX_DH_ERR,
+              "dH_cheap": audit.dH_cheap.tolist(),
+              "dH_exact": audit.dH_exact.tolist(),
+              "guard": dict(ph_eigh.GUARD),
+              "acceptance": {k: eq[k]["acceptance"] for k in ("exact",
+                                                              "cheap")},
+              "traj_per_sec": {k: eq[k]["traj_per_sec"] for k in ("exact",
+                                                                  "cheap")},
+              "shift_over_sem": {k: v["shift_over_sem"]
+                                 for k, v in eq["shifts"].items()},
+              "pass_at_this_depth": report["pass"],
+              "tpu_paired_bias_bf16": TPU_PAIRED_BIAS, "seconds": sec,
+              "launches": launches, "k1_expected": k1_want, "gpu": power})
+        paired = report["paired_dH"]
+        check(paired["n_samples"] > 0, f"validate.cheap_anchor {rot}: no "
+              "pair left to compare")
+        check(paired["max_abs_err"] < vca.MAX_DH_ERR,
+              f"validate.cheap_anchor {rot}: paired max |dH_cheap − "
+              f"dH_exact| = {paired['max_abs_err']:.4g} ≥ {vca.MAX_DH_ERR}")
+        check(all(np.isfinite(eq[k][o]["mean"]) for k in ("exact", "cheap")
+                  for o in ("energy", "delta_amp", "delta_pair")),
+              f"validate.cheap_anchor {rot}: non-finite observables")
+        check(launches["rotation_s_parts"] == k1_want,
+              f"validate.cheap_anchor {rot}: {launches['rotation_s_parts']}"
+              f" K1 launches, the schedule implies {k1_want}")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+    trajectory_dtype_check(ns, cache[ns.exact_solver][0], stream, power)
+    return total
+
+
+#: the exact anchor's float32 dH against a float64 recomputation of the same
+#: proposal: float32 eigenvalues of a 2304-dimensional embedding, summed
+#: with β = 10, stay far inside the paired gate
+DH_FLOAT64_TOL = 0.05
+
+
+def _energy_float64(lat, params, state, prop):
+    """H(new) − H(old) of a tracked proposal in float64 from scratch: the
+    kinetic and bosonic terms and the fermion term over the float64
+    eigenvalues of both embeddings (all levels / 2)."""
+    from dwavehmc_tpu_torch.models.bdg_real import (
+        assemble_embedding, static_embedding)
+
+    beta, J = float(params.beta), float(params.J)
+    Ms = static_embedding(lat, params.t, params.tp, params.mu,
+                          state.disorder).double()
+
+    def H(dre, dim, pre, pim):
+        M = assemble_embedding(lat, Ms, dre.double(), dim.double())
+        x = beta * torch.linalg.eigvalsh(M)[..., ::2].abs()
+        fer = -0.5 * torch.sum(x + 2.0 * torch.nn.functional.softplus(-x),
+                               dim=-1)
+        kin = torch.sum(pre.double() ** 2 + pim.double() ** 2, (-2, -1)) / 2
+        bos = beta / (2 * J) * torch.sum(dre.double() ** 2
+                                         + dim.double() ** 2, (-2, -1))
+        return kin + bos + fer
+
+    return (H(prop.delta_re, prop.delta_im, prop.pi_re, prop.pi_im)
+            - H(state.delta_re, state.delta_im, prop.pi_re0, prop.pi_im0))
+
+
+def trajectory_dtype_check(ns, state, stream, power: str) -> None:
+    """The first paired proposal of ``validate.cheap_anchor`` once with bf16
+    and once with float32 in-trajectory rotations, from the same
+    thermalized state and draws: the largest in-trajectory residual, the
+    exact dH (the guarded PH anchor) and its distance from a float64
+    recomputation of the same proposal, which must stay under
+    ``DH_FLOAT64_TOL``: the audit's exact side is exact to that."""
+    from dwavehmc_tpu_torch.drivers import validate_cheap_anchor as vca
+    from dwavehmc_tpu_torch.parallel.ensemble import tracked_accept_exact
+    from dwavehmc_tpu_torch.sampler.hmc_real import tracked_leapfrog
+
+    su = vca.setup(ns)
+    n, u = stream.take(ns.therm, 1)
+    rows = {}
+    for rot in (torch.bfloat16, None):
+        prop = tracked_leapfrog(
+            su.lat, su.params, state, ns.Nt, su.dt, ns.tracked_iters,
+            ns.refine_iters, ns.polish_iters, su.ns_steps, rot,
+            ns.polish_precision, ns.polish_correction, ns.rot_scheme,
+            normals=n[0], uniforms=u[0])
+        _, info = tracked_accept_exact(su.lat, su.params, state, prop,
+                                       ns.exact_solver)
+        dH = info.dH.double()
+        dH64 = _energy_float64(su.lat, su.params, state, prop)
+        rows["bfloat16" if rot else "float32"] = {
+            "res_max": prop.res_max.tolist(), "dH_exact": dH.tolist(),
+            "mean_dH_exact": float(dH.mean()),
+            "max_abs_dH_minus_float64": float((dH - dH64).abs().max())}
+    emit({"phase": "validate.cheap_anchor.trajectory", "rows": rows,
+          "tol": DH_FLOAT64_TOL, "gpu": power})
+    for name, r in rows.items():
+        check(r["max_abs_dH_minus_float64"] < DH_FLOAT64_TOL,
+              f"validate.cheap_anchor.trajectory {name}: exact dH "
+              f"{r['max_abs_dH_minus_float64']:.3g} from float64")
+
+
+#: ``ab_polish`` cut to its first two variants (4 polish rotations at
+#: "highest" and at "high"), at its own 16×16 width and batch 8, bf16
+#: rotations, K = 10, its depth cut from 10 therm, 6 paired and 20 sweeps;
+#: and the same polish at "default" (one TF32 pass), which the JAX script
+#: does not race, to show why "high" takes three
+POLISH_KNOBS = dict(L=16, batch=8, Nt=6, therm=4, paired=4, sweeps=10, K=10,
+                    rot="bfloat16")
+
+
+def validate_polish_phase(dev, power: str) -> dict:
+    """``ab_polish``'s two precision variants and the one-pass "default":
+    segment seconds and traj/s beside the paired bias of each; finite, and
+    K1's schedule."""
+    from dwavehmc_tpu_torch.drivers import ab_polish as ab
+
+    kn = POLISH_KNOBS
+    configs = ab.CONFIGS[:2] + [(4, "default", False)]
+    out, launches, sec = _counted(lambda: ab.ab_polish(
+        kn, configs, dev, log=lambda m: print(m, file=sys.stderr)))
+    k1_want = expected_rotations(kn["therm"], 1, 20, ab.TRACKED_ITERS)
+    for p_iters, _, _ in configs:
+        track = dict(tracked=ab.TRACKED_ITERS, refine=ab.REFINE_ITERS,
+                     polish=p_iters)
+        k1_want += (kn["paired"] * (kn["Nt"] * ab.TRACKED_ITERS
+                                    + ab.REFINE_ITERS + p_iters)
+                    + 3 * expected_rotations(kn["sweeps"], kn["K"], kn["Nt"],
+                                             **track))
+    emit({"phase": "validate.polish", "config": out["config"],
+          "results": out["results"], "seconds": sec, "launches": launches,
+          "k1_expected": k1_want, "gpu": power})
+    check(all(np.isfinite([r["max_dH_err"], r["traj_per_sec"]]).all()
+              for r in out["results"]), "validate.polish: non-finite result")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"validate.polish: {launches['rotation_s_parts']} K1 launches, the "
+          f"schedule implies {k1_want}")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "validate.polish: TF32 left on after the polish")
+    return launches
+
+
+#: "high" may lose at most this factor of "highest"'s eigenvalue error
+LIFT_HIGH_EVAL_FACTOR = 10.0
+
+
+def ph_lift_phase(dev, gen, power: str) -> None:
+    """``bench_ph_eigh`` at (8, 2304, 2304), the lift at "highest", "high"
+    (three TF32 products per product) and "default" (one) against the full
+    eigh: "high" keeps the eigenvalue error within 10× "highest"'s and the
+    guard's convergence residual under its threshold, its sign matrix
+    differs from "highest"'s (the TF32 products ran), and TF32 is off again
+    after each.  "default" is reported, not held to a bound."""
+    from dwavehmc_tpu_torch.drivers import bench_ph_eigh as bench
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    M = bench.build_batch(L_MAIN, N_CHAINS, gen, dev)
+    rows, signs = {}, {}
+    for prec in ("highest", "high", "default"):
+        ns = bench.parser().parse_args(
+            ["--lift_prec", prec, "--device", dev.type]
+            + (["--skip_qdwh"] if prec != "highest" else []))
+        res, (w, X, Y) = bench.race(
+            M, ns, log=lambda m: print(m, file=sys.stderr))
+        sgn, resid = ph_eigh.sign_embedding(M, lift_precision=prec,
+                                            return_resid=True)
+        signs[prec] = sgn
+        eye = torch.eye(X.shape[-1], device=dev)
+        res["orth_err"] = max(float((X.mT @ X + Y.mT @ Y - eye).abs().max()),
+                              float((X.mT @ Y - Y.mT @ X).abs().max()))
+        res["guard_resid"] = float(resid.max())
+        rows[prec] = res
+        del w, X, Y
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              f"anchor.ph_lift: TF32 left on after lift_prec={prec}")
+    sign_diff = float((signs["high"] - signs["highest"]).abs().max())
+    emit({"phase": "anchor.ph_lift", "shape": list(M.shape), "rows": rows,
+          "sign_max_diff_high_vs_highest": sign_diff,
+          "eval_err_factor": LIFT_HIGH_EVAL_FACTOR, "gpu": power})
+    hi, top = rows["high"], rows["highest"]
+    check(hi["eval_err"] <= LIFT_HIGH_EVAL_FACTOR * top["eval_err"],
+          f"anchor.ph_lift: eval_err {hi['eval_err']:.3g} at 'high' > "
+          f"{LIFT_HIGH_EVAL_FACTOR:g} × {top['eval_err']:.3g} at 'highest'")
+    for prec in ("highest", "high"):
+        check(rows[prec]["guard_resid"] < ph_eigh.PH_GUARD_RESID,
+              f"anchor.ph_lift {prec}: sign residual "
+              f"{rows[prec]['guard_resid']:.3g}")
+    check(sign_diff > 0.0, "anchor.ph_lift: 'high' gave the IEEE sign "
+          "matrix bit for bit; the TF32 products did not run")
+
+
+def beta_extreme_phase(dev, power: str) -> dict:
+    """``validate_beta_extreme`` at its 12×12 width (β = 1e4 and 1e5, 2
+    replicas, the host float64 readout), cut to 2 anneal stages × 2 sweeps,
+    3 therm and 4 measurement sweeps: every dH finite and both kernels
+    launched; the acceptance and the saturation fields are reported (not a
+    pass at this length)."""
+    from dwavehmc_tpu_torch.drivers import validate_beta_extreme as vbe
+
+    work = os.path.join(REPO, "build", "validate_smoke")
+    argv = ["--device", dev.type, "--n_therm", "3", "--n_measure", "4",
+            "--anneal_stages", "2", "--anneal_sweeps", "2",
+            "--root", os.path.join(work, "beta_extreme_12x12"),
+            "--out", os.path.join(work, "beta_extreme_validation.json")]
+    rep, launches, sec = _counted(lambda: vbe.main(argv))
+    emit({"phase": "validate.beta_extreme", "argv": argv[2:10],
+          "points": rep["points"], "saturated": rep["saturated"],
+          "delta_global_gap_over_sem": rep["delta_global_gap_over_sem"],
+          "rho_s_gap_over_sem": rep["rho_s_gap_over_sem"],
+          "pass_at_this_depth": rep["pass"], "seconds": sec,
+          "launches": launches, "gpu": power})
+    check(all(p["dH_all_finite"] for p in rep["points"].values()),
+          "validate.beta_extreme: a recorded dH is not finite")
+    for name in ("rotation_s_parts", "weighted_lorentzian_sum"):
+        check(launches[name] > 0, f"validate.beta_extreme: {name} was not "
+              "launched")
+    return launches
+
+
+def beta_dt_and_tune_phases(dev, power: str) -> dict:
+    """``probe_beta_dt`` (12×12 clean, β = 1e4, its four dt scales at 2
+    sweeps each after 2 therm sweeps) and ``tune_Nt_efficiency`` (8×8,
+    ``--Nt_list 4 8 16 --n_therm 3 --n_sweeps 5``): their tables, finite;
+    the probe launches K1, the complex-path study no kernel."""
+    from dwavehmc_tpu_torch.drivers import probe_beta_dt as probe
+    from dwavehmc_tpu_torch.drivers import tune_Nt_efficiency as tune
+
+    kn = probe.knobs({})
+    out, launches, sec = _counted(lambda: probe.probe(
+        kn, dev, therm=2, sweeps=2,
+        log=lambda m: print(m, file=sys.stderr)))
+    emit({"phase": "validate.beta_dt", "knobs": kn, "therm": 2, "sweeps": 2,
+          "dt0": out["dt0"],
+          "points": out["points"],
+          "ratio_dt0_over_quarter": out.get("ratio_dt0_over_quarter"),
+          "seconds": sec, "launches": launches, "gpu": power})
+    check(all(np.isfinite(p["mean_absdH"]) for p in out["points"]),
+          "validate.beta_dt: non-finite |dH|")
+    check(launches["rotation_s_parts"] > 0,
+          "validate.beta_dt: K1 was not launched")
+
+    argv = ["--Nt_list", "4", "8", "16", "--n_therm", "3", "--n_sweeps", "5",
+            "--device", dev.type]
+    lines = []
+    (rows, best), launches2, sec2 = _counted(
+        lambda: tune.tune(tune.parser().parse_args(argv), log=lines.append))
+    emit({"phase": "tune.Nt", "argv": argv[:-2], "table": lines,
+          "best": list(best), "seconds": sec2, "launches": launches2,
+          "gpu": power})
+    check(len(rows) == 3 and all(np.isfinite(r).all() for r in rows),
+          "tune.Nt: table incomplete or non-finite")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1900,6 +2237,13 @@ def main(argv=None) -> int:
     for counts in (bcs_clean_phases(dev, power),
                    tracked_eigh_phase(dev, gen, power),
                    bcs_beta_scan_phase(dev, power)):
+        for name, n in counts.items():
+            launches[name] += n
+    ph_lift_phase(dev, gen, power)
+    for counts in (validate_cheap_anchor_phase(dev, power),
+                   validate_polish_phase(dev, power),
+                   beta_extreme_phase(dev, power),
+                   beta_dt_and_tune_phases(dev, power)):
         for name, n in counts.items():
             launches[name] += n
     postprocess_cli_phase(power)

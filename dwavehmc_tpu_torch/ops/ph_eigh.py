@@ -19,9 +19,15 @@ one.  The exact diagonalization reduces to
 
 Every product is an IEEE float32 (or float64) ``torch.matmul``: the
 package switches TF32 off, and the minimax composition needs full-precision
-products to stay in its basin (see the schedule tables).  The half-dimension
-eigh goes through ``models/bdg_real.symmetric_eigh``, so on the card it
-avoids the inaccurate float32 Jacobi solver at dimension ≤ 512.
+products to stay in its basin (see the schedule tables).  The one exception
+is the lift loop at ``lift_precision`` "high" (three TF32 products per
+product) or "default" (one) on the card (``utils/precision``); the
+Newton–Schulz clean-up after it stays IEEE, so the converged sign reaches
+the float32 floor.  One TF32 pass loses the sign of the levels near zero,
+and the floor guard does not see it: "default" is not for production
+spectra.  The half-dimension eigh goes through
+``models/bdg_real.symmetric_eigh``, so on the card it avoids the inaccurate
+float32 Jacobi solver at dimension ≤ 512.
 
 ``diagonalize_embedding_ph_guarded`` checks convergence and re-solves the
 whole batch with ``models/bdg_real.diagonalize_embedding`` when any chain
@@ -41,6 +47,7 @@ import torch
 
 from ..models.bdg_real import diagonalize_embedding, symmetric_eigh
 from ..parallel.mesh import any_across_ranks
+from ..utils.precision import matmul_precision, product
 
 #: since the last ``reset_guard()``: guarded solves, their fallbacks, and
 #: over the fallbacks this process's voting chains that failed the guard —
@@ -120,13 +127,6 @@ def minimax_schedule(floor: float):
         "regenerate via the Remez snippet in docs/design.md")
 
 
-def _check_precision(lift_precision: str) -> None:
-    if lift_precision != "highest":
-        raise NotImplementedError(
-            f"lift_precision={lift_precision!r}: only 'highest' (IEEE "
-            "float32 products) is ported")
-
-
 def ph_reflect(V: torch.Tensor) -> torch.Tensor:
     """Apply the PH map S to eigenvector columns: (…, 4N, k) → (…, 4N, k).
 
@@ -148,18 +148,22 @@ def sign_embedding(M: torch.Tensor, n_lift: int | None = None, n_ns: int = 3,
 
     ``n_lift=None`` uses the minimax schedule for ``floor``; an integer
     selects that many fixed-coefficient lift steps.  ``n_ns`` Newton–Schulz
-    steps follow.  ``return_resid`` also returns ‖X²−I‖max of the last
-    pre-update iterate per matrix, the guard's convergence test."""
-    _check_precision(lift_precision)
+    steps follow.  ``lift_precision`` ("default", "high", "highest") sets
+    the lift loop's products only (``utils/precision``); the Newton–Schulz
+    steps stay IEEE.  ``return_resid`` also returns
+    ‖X²−I‖max of the last pre-update iterate per matrix, the guard's
+    convergence test."""
     # ‖M‖₂ ≤ ‖M‖∞ (row sum): a guaranteed bound, so the quintic cannot
     # diverge on an underestimate
     lam = M.abs().sum(-1).amax(-1)[..., None, None]
     X = M / lam
     sched = (minimax_schedule(floor) if n_lift is None
              else (_LIFT_ABC,) * n_lift)
-    for a, b, c in sched:
-        X2 = X @ X
-        X = a * X + X2 @ (b * X + c * (X2 @ X))
+    mm = product(lift_precision)
+    with matmul_precision(lift_precision, M.device):
+        for a, b, c in sched:
+            X2 = mm(X, X)
+            X = a * X + mm(X2, b * X + c * mm(X2, X))
     X2 = None
     for _ in range(n_ns):
         X2 = X @ X

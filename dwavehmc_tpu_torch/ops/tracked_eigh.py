@@ -11,10 +11,13 @@ rotations refine it:
 
 ``tracked_eigh`` adds the per-chain residual check and the exact
 fallback; the leapfrog uses ``tracked_eigh_nofallback`` and re-anchors
-once per sweep instead.  Complex matrices are real (re, im) pairs.  ``precision=None`` keeps the JAX
-package's 3-multiplication complex product and any other value its
-4-multiplication form; both run as IEEE float32 products on the card (TF32
-is off, see the package docstring).
+once per sweep instead.  Complex matrices are real (re, im) pairs.
+``precision=None`` keeps the JAX package's 3-multiplication complex product
+and any other value its 4-multiplication form.  ``None`` and "highest" run
+as IEEE float32 products on the card (TF32 is off, see the package
+docstring); "high" (three TF32 products per product) and "default" (one)
+run inside ``utils/precision.matmul_precision`` (the polish rotations of
+``sampler/hmc_real.tracked_leapfrog`` at ``polish_precision="high"``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..models.bdg_real import diagonalize_embedding
+from ..utils.precision import matmul_precision, product
 from .kernels import rotation_s_parts
 
 #: per-entry rotation cap (exact 2×2 Jacobi angle is ≤ π/4; damping keeps
@@ -62,7 +66,7 @@ def cmm(ar, ai, br, bi, precision=None):
         m2 = torch.matmul(ai, bi)
         m3 = torch.matmul(ar + ai, br + bi)
         return m1 - m2, m3 - m1 - m2
-    mm = torch.matmul
+    mm = product(precision)
     return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
 
 
@@ -73,7 +77,7 @@ def cmm_dag(ar, ai, br, bi, precision=None):
         m2 = torch.matmul(ai.mT, bi)
         m3 = torch.matmul((ar - ai).mT, br + bi)
         return m1 + m2, m3 - m1 + m2
-    mm = torch.matmul
+    mm = product(precision)
     return (mm(ar.mT, br) + mm(ai.mT, bi),
             mm(ar.mT, bi) - mm(ai.mT, br))
 
@@ -161,24 +165,26 @@ def tracked_eigh_nofallback(hr, hi, ur0, ui0, *, n_iter: int = 6,
                             eval_correction: bool = False,
                             rot_scheme: str = "ns"):
     """``n_iter`` tracked rotations from U₀, then the readout T = U†HU at
-    ``eval_precision`` (defaults to ``precision``).  Returns (evals, Ur, Ui,
-    off-diagonal residual per chain).  The eigenvalues are NOT sorted: every
-    use during a trajectory is order-independent, and the exact anchor
-    restores sorted order.  Under ``rot_dtype`` the loop carry is cast once
-    and the basis is cast back to the input dtype."""
+    ``eval_precision`` (defaults to ``precision``), each product at its
+    precision (``utils/precision.matmul_precision``).  Returns (evals, Ur,
+    Ui, off-diagonal residual per chain).  The eigenvalues are NOT sorted:
+    every use during a trajectory is order-independent, and the exact
+    anchor restores sorted order.  Under ``rot_dtype`` the loop carry is
+    cast once and the basis is cast back to the input dtype."""
     cdt = ur0.dtype
     ur, ui = ur0, ui0
     if rot_dtype is not None:
         ur, ui = ur.to(rot_dtype), ui.to(rot_dtype)
-    for _ in range(n_iter):
-        ur, ui = tracked_step(hr, hi, ur, ui, precision=precision,
-                              ns_steps=ns_steps, rot_dtype=rot_dtype,
-                              rot_scheme=rot_scheme)
+    with matmul_precision(precision, ur0.device):
+        for _ in range(n_iter):
+            ur, ui = tracked_step(hr, hi, ur, ui, precision=precision,
+                                  ns_steps=ns_steps, rot_dtype=rot_dtype,
+                                  rot_scheme=rot_scheme)
     if rot_dtype is not None:
         ur, ui = ur.to(cdt), ui.to(cdt)
-    tr, ti, d, res = _project_T(hr, hi, ur, ui,
-                                precision if eval_precision is None
-                                else eval_precision)
+    readout = precision if eval_precision is None else eval_precision
+    with matmul_precision(readout, ur0.device):
+        tr, ti, d, res = _project_T(hr, hi, ur, ui, readout)
     if eval_correction:
         d = rayleigh_corrected_evals(tr, ti, d)
     return d, ur, ui, res

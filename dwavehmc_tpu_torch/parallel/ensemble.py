@@ -218,6 +218,58 @@ class RowDraws:
         return self._cur
 
 
+class DrawStream:
+    """Every sweep's draws of one ensemble, kept so that a later segment
+    can take them again.  Sweep i's standard normals (B, 2, N, 2) and
+    float32 accept uniforms (B,) are drawn from ``generator`` once, in
+    sweep order (``sampler/hmc.draw_momenta``, as a segment runner draws
+    them), unless given as ``normals`` (n, B, 2, N, 2) and ``uniforms``
+    (n, B), as a test hands in the JAX run's.  ``take(start, n)`` returns
+    sweeps [start, start + n) stacked, for a runner's ``normals`` and
+    ``uniforms``: two segments that start from the same sweep take the same
+    draws, as two JAX segments started from the same per-chain keys do."""
+
+    def __init__(self, generator: torch.Generator | None, shape: tuple,
+                 dtype, device, normals=None, uniforms=None):
+        self.generator, self.shape = generator, tuple(shape)
+        self.dtype, self.device = dtype, device
+        self.normals = ([] if normals is None else list(
+            torch.as_tensor(normals).to(device=device, dtype=dtype)))
+        self.uniforms = ([] if uniforms is None else list(
+            torch.as_tensor(uniforms).to(device=device,
+                                         dtype=torch.float32)))
+
+    def take(self, start: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        while len(self.normals) < start + n:
+            if self.generator is None:
+                raise IndexError(f"sweeps [{start}, {start + n}) asked of "
+                                 f"{len(self.normals)} given draws")
+            nrm, u = draw_momenta(self.generator, self.shape, self.dtype,
+                                  self.device)
+            self.normals.append(nrm)
+            self.uniforms.append(u)
+        if n == 0:
+            return (torch.empty((0, *self.shape), dtype=self.dtype,
+                                device=self.device),
+                    torch.empty((0, self.shape[0]), device=self.device))
+        return (torch.stack(self.normals[start:start + n]),
+                torch.stack(self.uniforms[start:start + n]))
+
+
+def tracked_accept_exact(lat: LatticeSpec, params: ModelParams,
+                         states: HMCStateReal, proposal,
+                         exact_solver: str = "qdwh", vote=None
+                         ) -> tuple[HMCStateReal, SweepInfo]:
+    """The exact anchor of a tracked sweep: ``tracked_accept`` with the
+    proposals' eigenpairs from one ``_batch_eigs`` call ("ph": the guarded
+    PH solve of the whole batch).  It reads the proposal's accept uniforms,
+    as ``tracked_accept_cheap`` does, so both accepts of one proposal take
+    the same draw."""
+    eig_new = _batch_eigs(proposal_embedding(lat, params, states, proposal),
+                          exact_solver, vote)
+    return tracked_accept(lat, params, states, proposal, eig_new=eig_new)
+
+
 def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
                         states: HMCStateReal, n_sweeps: int, Nt: int, dt,
                         measure: bool = True, tracked_iters: int = 6,
@@ -253,11 +305,8 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
         if cheap:
             states, info = tracked_accept_cheap(lat, params, states, prop)
         else:
-            eig_new = _batch_eigs(
-                proposal_embedding(lat, params, states, prop), exact_solver,
-                vote)
-            states, info = tracked_accept(lat, params, states, prop,
-                                          eig_new=eig_new)
+            states, info = tracked_accept_exact(lat, params, states, prop,
+                                                exact_solver, vote)
         accs.append(info.accepted)
         dHs.append(info.dH)
         if measure:

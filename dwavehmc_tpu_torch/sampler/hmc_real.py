@@ -204,6 +204,9 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
     ``polish_precision`` with a "highest" readout) so the tracked endpoint
     spectrum can serve as a cheap Metropolis anchor; those endpoint phases
     keep two Newton–Schulz steps and the carry dtype, as in the JAX package.
+    ``polish_precision="high"`` runs the polish rotations' products as
+    three TF32 passes on the card; their eigenvalue readout stays IEEE
+    ("highest").
     """
     beta, J, mass = params.beta, params.J, params.mass
     rdt = state.evals.dtype

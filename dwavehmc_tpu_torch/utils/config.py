@@ -67,6 +67,8 @@ class RunConfig:
     refine_iters: int = 6           # fast endpoint refinement (cheap anchors)
     polish_iters: int = 3           # full-precision endpoint polish rotations
     polish_precision: str = "highest"  # precision of the polish rotations
+    #                                 ("high": three TF32 passes on the
+    #                                 card; the readout stays "highest")
     polish_correction: bool = False  # second-order Rayleigh correction on
     #                                 the cheap-anchor eigenvalue readout
     exact_solver: str = "ph"        # anchor/init eigensolver: "ph" (PH-split

@@ -372,6 +372,95 @@ def test_tracked_eigh_on_the_card_matches_the_cpu(cuda, cold):
     assert orth(got[1], got[2]) <= max(4.0 * orth(cpu32[1], cpu32[2]), 1e-4)
 
 
+def test_tf32_scope_and_the_three_pass_product(cuda):
+    """Inside ``matmul_precision`` a float32 product is a TF32 one: "default"
+    takes it as is (its error against float64 past 10× the IEEE
+    product's); "high"'s three-pass product stays within 8× the IEEE
+    error.  TF32 is off again after the scope, also when its body
+    raises."""
+    from dwavehmc_tpu_torch.utils.precision import matmul_precision, product
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a, b = (torch.randn(512, 512, generator=g).to(cuda) for _ in range(2))
+    want = a.double() @ b.double()
+    ieee = a @ b
+    with matmul_precision("default", cuda):
+        assert torch.backends.cuda.matmul.allow_tf32
+        one = product("default")(a, b)
+    with matmul_precision("high", cuda):
+        three = product("high")(a, b)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    err = {name: float((x.double() - want).abs().max())
+           for name, x in (("ieee", ieee), ("one", one), ("three", three))}
+    assert err["one"] > 10.0 * err["ieee"], err
+    assert err["three"] <= 8.0 * err["ieee"], err
+    assert not torch.equal(three, ieee)
+    with pytest.raises(RuntimeError):
+        with matmul_precision("high", cuda):
+            raise RuntimeError("inside the scope")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.equal(a @ b, ieee)
+
+
+@pytest.mark.parametrize("L", [12, 16])
+def test_guarded_ph_anchor_with_the_lift_at_high(cuda, L):
+    """``lift_precision="high"`` (three TF32 passes) on the card: no
+    fallback, eigenvalues within 10× the "highest" lift's error (or
+    1e-5·‖M‖∞), orthonormality to the float32 bound."""
+    from dwavehmc_tpu_torch.ops.ph_eigh import diagonalize_embedding_ph_guarded
+
+    M = _ph_embedding(L, L)
+    want = torch.linalg.eigvalsh(M)[..., ::2]
+    errs = {}
+    for prec in ("highest", "high"):
+        w, X, Y, fb = diagonalize_embedding_ph_guarded(
+            M.float().to(cuda), lift_precision=prec)
+        assert fb is False
+        errs[prec] = float((w.double().cpu() - want).abs().max())
+        gram = X.mT @ X + Y.mT @ Y
+        assert float((gram - torch.eye(gram.shape[-1], device=cuda)).abs()
+                     .max()) <= 5e-4
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert errs["high"] <= max(10.0 * errs["highest"],
+                               1e-5 * float(M.abs().sum(-1).max())), errs
+
+
+@pytest.mark.parametrize("polish", ["highest", "high"])
+def test_bf16_rotations_then_the_endpoint_polish_on_the_card(cuda, polish):
+    """``tracked_leapfrog``'s fast configuration on the card: 6 rotations
+    with bfloat16 storage (exp2, one Newton–Schulz step), the basis back in
+    float32, then the endpoint's 6 float32 refine rotations and 3 polish
+    rotations at ``polish`` with a "highest" readout: one K1 launch per
+    rotation, and the eigenvalues as close to float64 ``eigvalsh`` as the
+    CPU's run of the same steps (or 2e-5)."""
+    from dwavehmc_tpu_torch.ops.tracked_eigh import tracked_eigh_nofallback
+
+    hr, hi, ur0, ui0 = _tracked_problem(6, 3, 11, 1e-3)
+    M = torch.cat([torch.cat([hr, -hi], -1), torch.cat([hi, hr], -1)], -2)
+    want = torch.linalg.eigvalsh(M)[..., ::2]
+
+    def run(dev):
+        h_r, h_i, u_r, u_i = (x.float().to(dev) for x in (hr, hi, ur0, ui0))
+        _, u_r, u_i, _ = tracked_eigh_nofallback(
+            h_r, h_i, u_r, u_i, n_iter=6, ns_steps=1,
+            rot_dtype=torch.bfloat16, rot_scheme="exp2")
+        assert u_r.dtype == u_i.dtype == torch.float32
+        _, u_r, u_i, _ = tracked_eigh_nofallback(h_r, h_i, u_r, u_i,
+                                                 n_iter=6, rot_scheme="exp2")
+        d, _, _, _ = tracked_eigh_nofallback(
+            h_r, h_i, u_r, u_i, n_iter=3, precision=polish,
+            eval_precision="highest", rot_scheme="exp2")
+        return torch.sort(d.double().cpu(), dim=-1).values
+
+    before = kernels.LAUNCHES["rotation_s_parts"]
+    got = run(cuda)
+    assert kernels.LAUNCHES["rotation_s_parts"] == before + 15
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu_err = float((run("cpu") - want).abs().max())
+    err = float((got - want).abs().max())
+    assert err <= max(4.0 * cpu_err, 2e-5), (err, cpu_err)
+
+
 def test_clean_benchmark_gate_passes_on_the_card(capsys):
     """S3 ``--fast`` on the card, float64 complex path: the gap equation
     holds to < 0.02 and the measurement acceptance is above 0.5."""

@@ -106,9 +106,14 @@ def test_minimax_schedules_and_selection():
     assert tph.minimax_schedule(2e-5) is tph._MINIMAX_1E5
     with pytest.raises(ValueError):
         tph.minimax_schedule(1e-7)
-    with pytest.raises(NotImplementedError):
-        tph.sign_embedding(torch.eye(4, dtype=torch.float64)[None],
-                           lift_precision="high")
+    # the lift's precision modes: on the CPU every one is the IEEE product,
+    # and a name JAX does not have raises
+    M = 2.0 * torch.eye(4, dtype=torch.float64)[None]
+    for prec in ("default", "high"):
+        assert torch.equal(tph.sign_embedding(M, lift_precision=prec),
+                           tph.sign_embedding(M))
+    with pytest.raises(ValueError):
+        tph.sign_embedding(M, lift_precision="fast")
 
 
 @pytest.mark.parametrize("L,orth", [(4, "chol"), (6, "chol"), (4, "ns"),
