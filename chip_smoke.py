@@ -7,18 +7,25 @@ Run from the root of a checkout on a machine with one CUDA device.  It
 
 1. builds both CUDA kernels from ``dwavehmc_tpu_torch/csrc`` with nvcc;
 2. checks each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path and at unaligned ones (K1 max abs error ≤ 1e-6,
-   K2 rtol ≤ 1e-4), and times kernel and plain version with CUDA events (the
-   kernel from the replay of a CUDA graph of 20 calls, so that the number is
-   device time and not the host's launch rate); holds K2 on the σ(ω) path's
-   signed weights against a float64 plain run (error at most 4× the float32
-   plain version's, or 1e-5);
+   shapes of the main path, at BASELINE config 5's (32×32: K1 at (2, 2048,
+   2048), K2 at (2, 2556, 4194304) and, on the narrow geometry, (2, 100,
+   4194304), K2 there against the plain version in float64) and at
+   unaligned ones (K1 max abs error ≤ 1e-6, K2 rtol ≤ 1e-4), and times
+   kernel and plain version with CUDA events (the kernel from the replay of
+   a CUDA graph of 20 calls, so that the number is device time and not the
+   host's launch rate); holds K2 on the σ(ω) path's signed weights against
+   a float64 plain run (error at most 4× the float32 plain version's, or
+   1e-5);
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
    float64 ``eigh`` within 4× float32 ``eigh``'s error (or 1e-5·‖M‖∞),
    ‖XᵀX + YᵀY − I‖max ≤ 5e-4, the positive-level projector within 1e-3 of
    the full-embedding (qdwh) anchor's, and times both anchors; then a batch
-   with one gapless chain must fall back to ``diagonalize_embedding``;
+   with one gapless chain must fall back to ``diagonalize_embedding``; then
+   the guard on further seeded random-Δ batches of the same shape, each
+   chain's smallest level over ‖M‖∞ in float32 (the guard's) and, near the
+   floor, in float64: a fallback where float64 puts every level above the
+   floor is a false one (``anchor.ph_draws``);
 4. holds a small run on the card (float32, kernels) against the same run on
    the CPU (float64, plain versions), once per exact solver (qdwh, ph);
 5. drives the main path — the 24×24 production configuration, 8 chains at 8
@@ -91,7 +98,25 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    launched (``validate.beta_extreme``); ``probe_beta_dt`` and
    ``tune_Nt_efficiency`` (``validate.beta_dt``, ``tune.Nt``); counts are
    reset before and read after each;
-12. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+12. drives BASELINE config 5, the disorder-averaged 32×32 ensemble:
+   ``demo_config5 --mode card`` at 64 chains (the chunked init, 1 therm
+   sweep at Nt = 20, 2 timed sweeps at Nt = 6, K = 5) and one transport
+   pass on its final states at the spectral grid (2556 frequencies), with
+   the therm sweep's dH finite, every non-finite dH rejected (their count
+   reported by stage), the states and every output finite, 64
+   distinct realizations, K1 on its schedule, K2 twice, the memory
+   estimate beside the allocator's peak and chain 0's 4096 anchor against
+   float64 (``config5.card``);
+   ``demo_32x32`` at its defaults (``config5.demo_32x32``);
+   ``probe_fullspec_timing`` at 72 chains of 24×24, one rep per leg
+   (``probe.fullspec``); and ``demo_config5 --mode mesh_exec`` (8 chains
+   of 32×32) under W ranks, in float64 and float32: bit-equal to the
+   ranks' blocks run one after another in this process (initial and final
+   disorder and Δ, accepts, dH), and against the one-process batch the
+   initial ensemble, disorder and decisions equal, the rest reported with
+   the library's batch-size dependence beside it (``config5.mesh_exec``);
+   counts are reset before and read after each;
+13. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -132,6 +157,10 @@ K2_OPS_PER_LORENTZIAN = 6
 
 L_MAIN = 24
 N_CHAINS = 8
+#: BASELINE config 5's lattice (``examples/config5_*.json``): 2N = 2048,
+#: the real embedding 4096; its kernel phases run 2 chains, not 64 (the
+#: plain K2 keeps a (B, 16, M) float32 block live, 17 GB at 64 chains)
+C5_L = 32
 #: the chains' temperatures: every third point of the production T grid
 TEMPS = np.logspace(-4.0, 3.0, 24)[::3]
 #: leapfrog steps: the production scan's thermalization setting
@@ -202,6 +231,14 @@ def production_spec(lat):
     return SpectralSpec(eta=eta, domega=0.2 * eta, omega_max=4.0)
 
 
+def demo32_spec(lat):
+    """``demo_32x32``'s grid: η = 8/N, Δω = 0.02, ω_max = 2 (100
+    frequencies at 32×32, K2's narrow geometry)."""
+    from dwavehmc_tpu_torch.models.params import SpectralSpec
+
+    return SpectralSpec(eta=8.0 / lat.n_sites, domega=0.02, omega_max=2.0)
+
+
 def main_config(dev):
     """(lattice, spectral grid, temperatures, params, per-chain dt) of the
     main path: 24×24, 8 chains at every third point of the production T
@@ -244,12 +281,16 @@ def kernel_phases(dev, gen, power: str):
     from dwavehmc_tpu_torch.ops import kernels
 
     table = {}
-    for B, n, main in ((N_CHAINS, 2 * L_MAIN * L_MAIN, True),
-                       (2, 300, False)):
-        a = torch.randn(B, n, n, generator=gen, device=dev)
-        b = torch.randn(B, n, n, generator=gen, device=dev)
+    # config 5's inputs come from a generator of their own, so that every
+    # later phase draws what it drew before they were added
+    gen5 = torch.Generator(device=dev).manual_seed(C5_L)
+    for B, n, main, g in ((N_CHAINS, 2 * L_MAIN * L_MAIN, True, gen),
+                          (2, 300, False, gen),
+                          (2, 2 * C5_L * C5_L, False, gen5)):
+        a = torch.randn(B, n, n, generator=g, device=dev)
+        b = torch.randn(B, n, n, generator=g, device=dev)
         tr, ti = (a + a.mT) * 0.01, (b - b.mT) * 0.01
-        d = torch.sort(torch.randn(B, n, generator=gen, device=dev),
+        d = torch.sort(torch.randn(B, n, generator=g, device=dev),
                        dim=-1).values * 3.0
         before = kernels.LAUNCHES["rotation_s_parts"]
         sr, si = kernels.rotation_s_parts(tr, ti, d, 0.1)
@@ -281,33 +322,56 @@ def kernel_phases(dev, gen, power: str):
     M = (2 * lat.n_sites) ** 2
     grid = torch.as_tensor(spec.omega_grid(), dtype=torch.float32,
                            device=dev)
-    # (label, chains, grid, is the main path's σ(ω) call)
-    cases = (("optical", N_CHAINS, grid, True), ("dc", N_CHAINS, None, False),
-             ("optical", 2, grid, False), ("unaligned", 1, None, False))
-    for label, B, om, main in cases:
+    lat5 = LatticeSpec(C5_L, C5_L)
+    spec5, spec5_demo = production_spec(lat5), demo32_spec(lat5)
+    M5 = (2 * lat5.n_sites) ** 2
+
+    def om_grid(sp):
+        return torch.as_tensor(sp.omega_grid(), dtype=torch.float32,
+                               device=dev)
+
+    # (label, chains, grid, pairs, η, is the main path's σ(ω) call).  At
+    # config 5's 4.19M pairs the float32 plain version's own rounding
+    # reaches a few 1e-4 relative (cuBLAS sums 4.19M terms per product), so
+    # there both are held against the plain version in float64
+    cases = (("optical", N_CHAINS, grid, M, spec.eta, True),
+             ("dc", N_CHAINS, None, M, spec.eta, False),
+             ("optical", 2, grid, M, spec.eta, False),
+             ("unaligned", 1, None, 1000, spec.eta, False),
+             ("config5_optical", 2, om_grid(spec5), M5, spec5.eta, False),
+             ("config5_narrow", 2, om_grid(spec5_demo), M5, spec5_demo.eta,
+              False))
+    for label, B, om, m, eta, main in cases:
         if label == "dc":
             omega = torch.zeros((B, 1), device=dev)
         elif label == "unaligned":
             omega = torch.linspace(0.01, 4.0, 37, device=dev)[None]
         else:
             omega = om.expand(B, -1).contiguous()
-        m = 1000 if label == "unaligned" else M
-        de = torch.randn(B, m, generator=gen, device=dev) * 2.0
-        w2 = torch.rand(B, m, generator=gen, device=dev)
+        g = gen5 if label.startswith("config5") else gen
+        de = torch.randn(B, m, generator=g, device=dev) * 2.0
+        w2 = torch.rand(B, m, generator=g, device=dev)
         before = kernels.LAUNCHES["weighted_lorentzian_sum"]
-        got = kernels.weighted_lorentzian_sum(omega, de, w2, spec.eta)
+        got = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
         torch.cuda.synchronize()
         check(kernels.LAUNCHES["weighted_lorentzian_sum"] == before + 1,
               "K2 wrapper did not count its launch")
-        want = kernels.weighted_lorentzian_sum_plain(omega, de, w2, spec.eta)
+        want = kernels.weighted_lorentzian_sum_plain(omega, de, w2, eta)
+        ref = {}
+        if label.startswith("config5"):
+            want64 = kernels.weighted_lorentzian_sum_plain(
+                omega.double(), de.double(), w2.double(), eta)
+            ref = {"reference": "plain float64", "plain_f32_rel_err": float(
+                ((want - want64).abs() / want64.abs()).max())}
+            want = want64
         abs_err = float((got - want).abs().max())
         rel_err = float(((got - want).abs() / want.abs()).max())
-        again = kernels.weighted_lorentzian_sum(omega, de, w2, spec.eta)
+        again = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
         repeat = bool(torch.equal(got, again))
         ms = cuda_ms(lambda: kernels.weighted_lorentzian_sum(
-            omega, de, w2, spec.eta), 20, graph=True)
+            omega, de, w2, eta), 20, graph=True)
         plain_ms = cuda_ms(lambda: kernels.weighted_lorentzian_sum_plain(
-            omega, de, w2, spec.eta), 2, warmup=1)
+            omega, de, w2, eta), 2, warmup=1)
         n_w = omega.shape[-1]
         bound_ms, bound_by = roofline(4 * (2 * B * n_w + 2 * B * m),
                                       K2_OPS_PER_LORENTZIAN * B * n_w * m)
@@ -317,7 +381,7 @@ def kernel_phases(dev, gen, power: str):
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "launch": launch_geometry(n_w, m),
               "launches": kernels.LAUNCHES["weighted_lorentzian_sum"],
-              "gpu": power})
+              **ref, "gpu": power})
         check(rel_err <= 1e-4, f"K2 {label} at {(B, n_w, m)}: rel err "
               f"{rel_err} > 1e-4")
         check(repeat, f"K2 {label}: two runs differ")
@@ -799,6 +863,76 @@ def anchor_phases(dev, gen, power: str) -> None:
           "fallback")
     check(diff == 0.0, f"anchor.ph_fallback: result differs from "
           f"diagonalize_embedding by {diff}")
+
+
+#: further random-Δ batches the guard runs on (``anchor.ph_draws``), each from
+#: a generator of its own, seeded 1001, 1002, …
+PH_DRAW_BATCHES = 8
+#: a chain whose float32 smallest-level ratio is under this many times the
+#: guard's floor also gets its levels in float64
+PH_DRAW_NEAR = 4.0
+
+
+def ph_draws_phase(dev, power: str) -> None:
+    """The guarded PH anchor on ``PH_DRAW_BATCHES`` seeded batches of the
+    main path's shape (8 × 2304, a random Δ start, as ``anchor.ph``'s): per
+    batch whether it fell back, the sign iteration's largest residual
+    against ``PH_GUARD_RESID``, the smallest |Ritz value| / ‖M‖∞ against
+    ``PH_GUARD_RATIO`` (the guard's own quantities, recomputed), the chains
+    whose positive basis (``positive_basis``, CholeskyQR³) came out
+    non-finite, and, for chains within ``PH_DRAW_NEAR``× of the ratio
+    floor, the same ratio from float64 ``eigvalsh``.  A broken-down basis
+    is NaN-zeroed before the Ritz step, so its chain shows a Ritz value of
+    0 and the batch falls back through the ratio test.  A fallback is
+    false when float64 puts every level above the floor and no basis broke
+    down; their count must be 0, the breakdowns' is reported."""
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    rows = []
+    for i in range(PH_DRAW_BATCHES):
+        g = torch.Generator(device=dev).manual_seed(1001 + i)
+        M = _anchor_batch(dev, g)
+        ph_eigh.reset_guard()
+        fb = ph_eigh.diagonalize_embedding_ph_guarded(M)[3]
+        sgn, resid = ph_eigh.sign_embedding(M, return_resid=True)
+        Q = ph_eigh.positive_basis(M, sgn)
+        broken = torch.nonzero(~torch.isfinite(Q).all(-1).all(-1))
+        wt, _ = ph_eigh._ritz(M, Q)
+        lam = M.abs().sum(-1).amax(-1)
+        ratio = (wt.abs().amin(-1) / lam).double().cpu()
+        near = torch.nonzero(ratio < PH_DRAW_NEAR * ph_eigh.PH_GUARD_RATIO)
+        ratio64 = ratio.clone()
+        if len(near):
+            idx = near[:, 0].to(dev)
+            w64 = torch.linalg.eigvalsh(M[idx].double())
+            ratio64[near[:, 0]] = (w64.abs().amin(-1)
+                                   / lam[idx].double()).cpu()
+        below = bool((ratio64 <= ph_eigh.PH_GUARD_RATIO).any())
+        rows.append({"seed": 1001 + i, "fell_back": fb,
+                     "guard": dict(ph_eigh.GUARD),
+                     "max_resid": float(resid.max()),
+                     "resid_passed": bool(
+                         (resid < ph_eigh.PH_GUARD_RESID).all()),
+                     "min_ratio_f32": ratio.tolist(),
+                     "min_ratio_f64_near": {int(c): float(ratio64[c])
+                                            for c in near[:, 0]},
+                     "basis_nonfinite_chains": broken[:, 0].tolist(),
+                     "level_below_floor_f64": below,
+                     "false_fallback": fb and not below and not len(broken)})
+        del M, sgn, Q, wt
+    false = sum(r["false_fallback"] for r in rows)
+    emit({"phase": "anchor.ph_draws", "batches": rows,
+          "resid_floor": ph_eigh.PH_GUARD_RESID,
+          "ratio_floor": ph_eigh.PH_GUARD_RATIO,
+          "fallbacks": sum(r["fell_back"] for r in rows),
+          "batches_with_a_level_below_floor": sum(
+              r["level_below_floor_f64"] for r in rows),
+          "batches_with_a_basis_breakdown": sum(
+              bool(r["basis_nonfinite_chains"]) for r in rows),
+          "false_fallbacks": false, "gpu": power})
+    check(false == 0, f"anchor.ph_draws: {false} fallbacks in "
+          f"{PH_DRAW_BATCHES} batches with every level above the floor and "
+          "a finite basis")
 
 
 # --- the scan entry point -----------------------------------------------------
@@ -2176,6 +2310,331 @@ def beta_dt_and_tune_phases(dev, power: str) -> dict:
 
 
 
+# --- BASELINE config 5: the disorder-averaged 32×32 ensemble ------------------
+
+#: ``demo_config5 --mode card`` at full width (64 chains of 32×32, the
+#: ensemble config 5 defines), its depth cut from 10 therm, 2 warm-up and
+#: 10 timed sweeps to 1, 0 and 2
+C5_CARD = dict(batch=64, L=C5_L, therm=1, warmup=0, sweeps=2)
+#: the card mode's tracked settings (``drivers/demo_config5.card_demo``)
+C5_TRACK = dict(tracked=6, refine=12, polish=4)
+
+
+def _anchor_4096(lat, params, states) -> dict:
+    """Chain 0's exact anchor (``diagonalize_embedding``, float32) at the
+    32×32 embedding against float64 ``eigvalsh`` of the same matrix,
+    reported as ``anchor.ph`` reports the 2304 anchor: max eigenvalue error,
+    ‖M‖∞, and the device ms of each solve."""
+    from dwavehmc_tpu_torch.models.bdg_real import (
+        assemble_embedding, diagonalize_embedding, static_embedding)
+
+    one = slice(0, 1)
+    M = assemble_embedding(lat, static_embedding(
+        lat, params.t, params.tp, params.mu, states.disorder[one]),
+        states.delta_re[one], states.delta_im[one])
+    ev = diagonalize_embedding(M)[0]
+    w64 = torch.linalg.eigvalsh(M.double())[..., ::2]
+    norm = float(M.abs().sum(-1).amax())
+    err = float((ev.double() - w64).abs().max())
+    return {"dim": M.shape[-1], "eval_err": err, "norm_inf": norm,
+            "eval_err_over_norm": err / norm,
+            "anchor_ms": event_ms(lambda: diagonalize_embedding(M), reps=2),
+            "float64_ms": event_ms(
+                lambda: torch.linalg.eigvalsh(M.double()), reps=1)}
+
+
+def config5_card_phase(dev, power: str) -> dict:
+    """``demo_config5 --mode card`` at 64 × 32×32 (``C5_CARD``), then one
+    transport pass on its final states at the spectral grid η = 8/N,
+    Δω = 0.2η, ω_max = 4 (2556 frequencies; the card mode itself runs
+    none): the therm sweep's dH finite; every non-finite dH rejected, and
+    their count by stage reported (the card mode's ``nonfinite_dH``); the
+    states and every transport output finite, 64 distinct realizations, K1
+    on its schedule and no K2 in the run, K2 twice in the pass; the memory
+    estimate beside the allocator's peak; chain 0's 4096 anchor against
+    float64.
+
+    A finite dH over the timed sweeps cannot be asked at this depth: after
+    one therm sweep (acceptance ≈ 0.17) most chains hold their random
+    start, where the Nt = 6 step (dt ≈ 3× the Nt = 20 one) diverges on a
+    few; the full run (10 therm sweeps) reports its own count."""
+    from dwavehmc_tpu_torch.drivers import demo_config5 as c5
+    from dwavehmc_tpu_torch.parallel.ensemble import ensemble_transport_real
+    from dwavehmc_tpu_torch.utils.memory import device_memory, estimate_memory
+
+    kn = C5_CARD
+    out = os.path.join(REPO, "build", "config5_smoke", "card.json")
+    run, launches, sec = _counted(lambda: c5.card_demo(
+        out, dev, log=lambda m: print(m, file=sys.stderr), **kn))
+    k1_want = (expected_rotations(kn["therm"], 1, 20, **C5_TRACK)
+               + expected_rotations(kn["warmup"], 5, 6, **C5_TRACK)
+               + expected_rotations(kn["sweeps"], 5, 6, **C5_TRACK))
+    distinct = len({d.tobytes() for d in
+                    run.states.disorder.cpu().numpy()})
+    spec = production_spec(run.lat)
+    res, launches2, sec2 = _counted(lambda: ensemble_transport_real(
+        run.lat, spec, run.params, run.states))
+    peak = torch.cuda.max_memory_allocated(dev)
+    est = estimate_memory(run.lat, kn["batch"], torch.float32)
+    anchor = _anchor_4096(run.lat, run.params, run.states)
+    nonfinite = ~np.isfinite(run.dH)
+    emit({"phase": "config5.card", "knobs": kn, "report": run.report,
+          "seconds": sec, "dH": run.dH.tolist(),
+          "distinct_disorder_realizations": distinct,
+          "launches": launches, "k1_expected": k1_want,
+          "transport": {"seconds": sec2, "n_omega": spec.n_omega,
+                        "launches": launches2,
+                        "shapes": {k: list(v.shape)
+                                   for k, v in res._asdict().items()},
+                        "stiffness_mean": float(
+                            res.superfluid_stiffness.mean()),
+                        "dc_conductivity_mean": float(
+                            res.dc_conductivity.mean())},
+          "memory": {"estimate": str(est), "estimate_bytes": est.total_bytes,
+                     "max_memory_allocated_bytes": peak,
+                     "allocated_over_estimate": peak / est.total_bytes,
+                     "card_bytes": device_memory(dev)},
+          "anchor_4096": anchor, "gpu": power})
+    check(np.isfinite(run.dH[:kn["therm"]]).all(),
+          "config5.card: a therm sweep's dH is not finite")
+    check(not (nonfinite & run.accepted).any(),
+          "config5.card: a non-finite dH was accepted")
+    check(sum(run.report["nonfinite_dH"].values()) == int(nonfinite.sum()),
+          "config5.card: the report's non-finite dH count is wrong")
+    _finite(run.states, "config5.card.state")
+    check(distinct == kn["batch"], f"config5.card: {distinct} distinct "
+          f"realizations of {kn['batch']}")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"config5.card: {launches['rotation_s_parts']} K1 launches, the "
+          f"schedule implies {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 0,
+          "config5.card: the segments launched K2")
+    check(launches2["weighted_lorentzian_sum"] == 2,
+          f"config5.card: {launches2['weighted_lorentzian_sum']} K2 "
+          "launches in the transport pass, expected 2")
+    check(tuple(res.optical_conductivity.shape)
+          == (kn["batch"], spec.n_omega), "config5.card: σ(ω) shape")
+    _finite(res, "config5.card.transport")
+    check(anchor["eval_err"] <= 1e-5 * anchor["norm_inf"],
+          f"config5.card: the 4096 anchor's eigenvalue error "
+          f"{anchor['eval_err']:.3g} > 1e-5·‖M‖∞")
+    del run, res
+    torch.cuda.empty_cache()
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def config5_demo32_phase(dev, power: str) -> dict:
+    """``demo_32x32`` at its defaults (2 chains of 32×32, 8 therm at
+    Nt = 20 and 2 × 10 measured sweeps at Nt = 6, K = 5, refine 12 /
+    polish 6, bf16 rotations, one transport pass on 100 frequencies):
+    finite, K1 on its schedule, K2 twice."""
+    from dwavehmc_tpu_torch.drivers import demo_32x32 as demo
+
+    kn = demo.knobs({})
+    (out, _, _), launches, sec = _counted(lambda: demo.demo(
+        kn, dev, log=lambda m: print(m, file=sys.stderr)))
+    track = dict(tracked=demo.TRACK["tracked_iters"],
+                 refine=demo.TRACK["refine_iters"],
+                 polish=demo.TRACK["polish_iters"])
+    k1_want = (expected_rotations(kn["therm"], kn["anchor_every"],
+                                  demo.NT_THERM, **track)
+               + 2 * expected_rotations(kn["sweeps"], kn["anchor_every"],
+                                        kn["Nt"], **track))
+    emit({"phase": "config5.demo_32x32", "knobs": kn, "report": out,
+          "seconds": sec, "launches": launches, "k1_expected": k1_want,
+          "gpu": power})
+    check(out["finite"], "config5.demo_32x32: non-finite output")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"config5.demo_32x32: {launches['rotation_s_parts']} K1 launches, "
+          f"the schedule implies {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 2,
+          f"config5.demo_32x32: {launches['weighted_lorentzian_sum']} K2 "
+          "launches, expected 2")
+    return launches
+
+
+def probe_fullspec_phase(dev, power: str) -> dict:
+    """``probe_fullspec_timing`` at its full width (72 chains of 24×24, the
+    production T grid's β three times over, the full spectral grid), cut to
+    one rep per leg: each leg's seconds and acceptance, ρ_s finite, K1 on
+    its schedule, K2 twice."""
+    from dwavehmc_tpu_torch.drivers import probe_fullspec_timing as pft
+
+    kn = pft.knobs({})
+    out, launches, sec = _counted(lambda: pft.probe(
+        kn, dev, reps=1, log=lambda m: print(m, file=sys.stderr)))
+    k1_want = sum(expected_rotations(1, 1, nt, refine=12, polish=4)
+                  for _, nt in pft.LEGS)
+    emit({"phase": "probe.fullspec", "knobs": kn, "n_omega": out["n_omega"],
+          "legs": [{k: v for k, v in leg.items() if k != "accepted"}
+                   for leg in out["legs"]],
+          "transport": out["transport"], "seconds": sec,
+          "launches": launches, "k1_expected": k1_want, "gpu": power})
+    check(all(np.isfinite(t["rho0"]) for t in out["transport"]),
+          "probe.fullspec: non-finite ρ_s")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"probe.fullspec: {launches['rotation_s_parts']} K1 launches, the "
+          f"schedule implies {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 2,
+          f"probe.fullspec: {launches['weighted_lorentzian_sum']} K2 "
+          "launches, expected 2")
+    return launches
+
+
+#: ``demo_config5 --mode mesh_exec`` at its defaults: 8 chains of 32×32,
+#: 2 cheap-anchor sweeps at Nt = 2
+C5_EXEC_ARGS = ["--mode", "mesh_exec", "--batch", "8", "--sweeps", "2",
+                "--L", str(C5_L)]
+
+
+def _mesh_exec_blocks(c5, dev, ns, dtype, W: int,
+                      work: str) -> tuple[dict, dict]:
+    """The ranks' blocks of the ``mesh_exec`` ensemble run one after another
+    in this process, each as a batch of its own: the one-process initial
+    ensemble and draws, sliced to the block's chains.  Each block has the
+    shapes a rank's batch has, so the same library kernels run.  Returns
+    the blocks' saved state, concatenated in chain order, and how far one
+    Nt = 2 leapfrog of the first block alone lands from the same chains'
+    leapfrog in the whole batch (max |ΔΔ| and max |ΔX|)."""
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.parallel.ensemble import DrawStream
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+    from dwavehmc_tpu_torch.sampler.hmc_real import tracked_leapfrog
+
+    lat = LatticeSpec(ns.L, ns.L)
+    params = c5.setup(dev, dtype)
+    st, gen = c5.init_block(lat, params, c5.rank_block(ns.batch), ns.batch,
+                            dev, dtype=dtype)
+    shape = (ns.batch, 2, lat.n_sites, 2)
+    normals, uniforms = DrawStream(gen, shape, dtype, dev).take(0, ns.sweeps)
+    per = -(-ns.batch // W)
+    # mesh_exec's step: Nt = 2 at the Nt = 6 dt
+    dt = torch.full((ns.batch,), calc_optimal_dt(20.0, 0.8, 1.0, 6),
+                    dtype=dtype, device=dev)
+    whole, alone = (tracked_leapfrog(
+        lat, params, type(st)(*(x[:b] for x in st)), 2, dt[:b], 6, 0, 0, 2,
+        normals=normals[0, :b], uniforms=uniforms[0, :b])
+        for b in (ns.batch, per))
+    leapfrog = {k: float((getattr(whole, k)[:per] - getattr(alone, k))
+                         .abs().max()) for k in ("delta_re", "X")}
+    del whole, alone
+    parts = []
+    for r in range(W):
+        rows = np.minimum(np.arange(r * per, (r + 1) * per), ns.batch - 1)
+        idx = torch.as_tensor(rows, device=dev)
+        path = os.path.join(work, f"mesh_exec_blocks_{r}")
+        c5.mesh_exec_demo(
+            path + ".json", dev, batch=per, sweeps=ns.sweeps, L=ns.L,
+            min_ranks=1, dtype=dtype,
+            init=tuple(x[idx].cpu().numpy() for x in (
+                st.disorder, st.delta_re, st.delta_im)),
+            stream=DrawStream(None, (per, *shape[1:]), dtype, dev,
+                              normals[:, idx], uniforms[:, idx]),
+            save_state=path + ".npz", log=lambda m: None)
+        parts.append(np.load(path + ".npz"))
+    return {k: np.take(np.concatenate(
+        [p[k] for p in parts], axis=int(k in ("accepted", "dH"))),
+        np.arange(ns.batch), axis=int(k in ("accepted", "dH")))
+        for k in parts[0].files}, leapfrog
+
+
+def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
+    """Whether three library calls give the first block of B / W chains the
+    same bits alone as inside the batch of B: the batched product
+    (B, n, n)·(B, n, n), the batched matrix-vector product (B, n, n)·(B, n,
+    1) (the σ-cap's power iteration) and the per-chain sum over (B, n) (the
+    energies' sums over the levels).  cuBLAS and PyTorch's reduction
+    kernels choose their launch by the batch's size."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn(B, n, n, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(B, n, 1, generator=g, device=dev, dtype=dtype)
+    k = B // W
+    return {name: bool(torch.equal(f(a, v)[:k], f(a[:k], v[:k])))
+            for name, f in (("matmul", lambda x, y: x @ x),
+                            ("matvec", lambda x, y: x @ y),
+                            ("sum_per_chain", lambda x, y: y[..., 0].sum(-1)))}
+
+
+def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
+    """``demo_config5 --mode mesh_exec`` (``C5_EXEC_ARGS``) under W ranks on
+    the card and the same call in this process (``min_ranks=1``), in
+    float64 and in float32, each writing its gathered initial and final
+    disorder and Δ, accepts and dH.
+
+    In each dtype the ranks are bit-equal on all of them to their blocks
+    run one after another in this process (``_mesh_exec_blocks``).  Against
+    the one-process batch of 8 the initial ensemble, the disorder and the
+    decisions must be equal; the final Δ and dH are reported, beside
+    whether the library calls the sweep makes give a block the same bits
+    alone as in the batch (``_batch_invariance``; they do not, ROADMAP
+    fault F6) and how far one leapfrog of a block alone lands from the
+    batch's.  mesh_exec runs Nt = 2 at the Nt = 6 step (dt = 0.105, 3.3×
+    the Nt = 20 one) from a cold start, so one rounding's difference grows
+    over the trajectory.  W ranks, 8 distinct realizations, finite dH.  Returns the
+    launches of the one-process calls (the ranks count their own)."""
+    from dwavehmc_tpu_torch.drivers import demo_config5 as c5
+
+    work = os.path.join(REPO, "build", "config5_smoke")
+    ns = c5.parser().parse_args(C5_EXEC_ARGS)
+    launches = dict.fromkeys(("rotation_s_parts", "weighted_lorentzian_sum"),
+                             0)
+    res = {"phase": "config5.mesh_exec", "W": W}
+    runs = {}
+    for name in ("float64", "float32"):
+        dtype = getattr(torch, name)
+        paths = {w: os.path.join(work, f"mesh_exec_{name}_{w}")
+                 for w in ("one", "ranks")}
+        one, counts, sec_one = _counted(lambda: c5.mesh_exec_demo(
+            paths["one"] + ".json", dev, batch=ns.batch, sweeps=ns.sweeps,
+            L=ns.L, min_ranks=1, dtype=dtype,
+            save_state=paths["one"] + ".npz",
+            log=lambda m: print(m, file=sys.stderr)))
+        for k, n in counts.items():
+            launches[k] += n
+        sec_ranks = torchrun(
+            "dwavehmc_tpu_torch.drivers.demo_config5",
+            C5_EXEC_ARGS + ["--device", dev.type, "--dtype", name,
+                            "--out", paths["ranks"] + ".json",
+                            "--save_state", paths["ranks"] + ".npz"],
+            W, 600, os.path.join(work, f"mesh_exec_{name}.launcher.log"))
+        with open(paths["ranks"] + ".json") as f:
+            ranks = json.load(f)
+        a, b = (dict(np.load(paths[w] + ".npz")) for w in ("one", "ranks"))
+        runs[name] = (one, ranks)
+        res[name] = {
+            "one_process": one, "ranks": ranks,
+            "bit_equal_one_process": {k: bool(np.array_equal(a[k], b[k]))
+                                      for k in a},
+            "max_abs_dH_diff_one_process": float(np.abs(a["dH"]
+                                                        - b["dH"]).max()),
+            "seconds_one_process": sec_one, "launcher_seconds": sec_ranks,
+            "batch_invariant": _batch_invariance(
+                dev, dtype, ns.batch, 2 * ns.L * ns.L, W)}
+        blocks, leapfrog = _mesh_exec_blocks(c5, dev, ns, dtype, W, work)
+        res[name]["bit_equal_blocks"] = {
+            k: bool(np.array_equal(blocks[k], b[k])) for k in b}
+        res[name]["leapfrog_block_vs_batch"] = leapfrog
+    res.update(launches=launches, gpu=power)
+    emit(res)
+    for name, (one, ranks) in runs.items():
+        check(ranks["devices"] == W, f"config5.mesh_exec {name}: "
+              f"{ranks['devices']} ranks, launched {W}")
+        for r in (one, ranks):
+            check(r["distinct_disorder_realizations"] == ns.batch and
+                  r["dH_finite"], f"config5.mesh_exec {name}: {r}")
+        for k, eq in res[name]["bit_equal_blocks"].items():
+            check(eq, f"config5.mesh_exec {name}: the ranks' {k} differs "
+                  "from their blocks run in one process")
+        for k in ("init_disorder", "init_delta_re", "init_delta_im",
+                  "final_disorder", "accepted"):
+            check(res[name]["bit_equal_one_process"][k],
+                  f"config5.mesh_exec {name}: the ranks' {k} differs from "
+                  "one process")
+    check(launches["rotation_s_parts"] > 0,
+          "config5.mesh_exec: K1 was not launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2201,6 +2660,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     table = kernel_phases(dev, gen, power)
     anchor_phases(dev, gen, power)
+    ph_draws_phase(dev, power)
     for solver in ("qdwh", "ph"):
         reference_phase(dev, args.seed, solver)
     launches = main_path(dev, args.seed, power)
@@ -2246,6 +2706,14 @@ def main(argv=None) -> int:
                    beta_dt_and_tune_phases(dev, power)):
         for name, n in counts.items():
             launches[name] += n
+    for counts in (config5_card_phase(dev, power),
+                   config5_demo32_phase(dev, power),
+                   probe_fullspec_phase(dev, power)):
+        for name, n in counts.items():
+            launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in config5_mesh_exec_phase(dev, power, W).items():
+        launches[name] += n
     postprocess_cli_phase(power)
     quickcheck_phase(power)
     profile_phase(dev, args.seed, power)

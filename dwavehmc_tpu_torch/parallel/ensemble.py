@@ -148,8 +148,9 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
                        device="cuda") -> HMCStateReal:
     """``n_chains`` chains, each with its own disorder realization and Δ
     start, drawn from ``generator`` unless given.  ``init_chunk``:
-    diagonalize the initial ensemble in sub-batches of this many chains to
-    bound the eigensolver's workspace; each sub-batch is one
+    assemble and diagonalize the initial ensemble in sub-batches of this
+    many chains to bound the embedding's and the eigensolver's memory;
+    each sub-batch is one
     ``_batch_eigs`` call (a cold random-Δ spectrum is where near-zero
     levels can sit under the PH solver's floor).  ``rows`` (indices,
     repeats allowed): keep, and diagonalize, only those chains of the
@@ -164,11 +165,18 @@ def init_ensemble_real(lat: LatticeSpec, params: ModelParams,
         lat, params, n_chains, generator=generator, dtype=dtype, n_imp=n_imp,
         delta0_re=delta0_re, delta0_im=delta0_im, disorder=disorder,
         exact_solver=exact_solver, diagonalize=False, device=device)
-    M_static = static_embedding(lat, params.t, params.tp, params.mu,
-                                states.disorder)
-    M = assemble_embedding(lat, M_static, states.delta_re, states.delta_im)
     chunk = n_chains if init_chunk is None else max(1, init_chunk)
-    parts = [_batch_eigs(M[i:i + chunk], exact_solver,
+
+    def embedding(rows: slice) -> torch.Tensor:
+        # one sub-batch's embedding at a time: at 32×32 the whole
+        # ensemble's would be 4096² floats per chain
+        pick = lambda x: x[rows] if x.ndim else x  # noqa: E731
+        M_static = static_embedding(lat, pick(params.t), pick(params.tp),
+                                    pick(params.mu), states.disorder[rows])
+        return assemble_embedding(lat, M_static, states.delta_re[rows],
+                                  states.delta_im[rows])
+
+    parts = [_batch_eigs(embedding(slice(i, i + chunk)), exact_solver,
                          None if vote is None else vote[i:i + chunk])
              for i in range(0, n_chains, chunk)]
     evals, X, Y = (torch.cat(xs) for xs in zip(*parts))

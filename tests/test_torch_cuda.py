@@ -36,7 +36,8 @@ def _rot_inputs(batch, n, device, seed=0):
     return tr.to(device), ti.to(device), d.to(device)
 
 
-@pytest.mark.parametrize("batch,n", [(2, 300), (3, 1152), (1, 1)])
+@pytest.mark.parametrize("batch,n", [(2, 300), (3, 1152), (1, 1),
+                                     (1, 2048)])
 def test_rotation_kernel_matches_plain(cuda, batch, n):
     tr, ti, d = _rot_inputs(batch, n, cuda)
     tr[0, 0, min(1, n - 1)] = 0.0
@@ -61,9 +62,15 @@ def test_rotation_kernel_returns_the_callers_dtype(cuda):
     assert torch.equal(sr, kr.double()) and torch.equal(si, ki.double())
 
 
-@pytest.mark.parametrize("batch,n_w,M", [(1, 37, 1000), (2, 1, 70000),
-                                         (2, 1436, 50000), (1, 5, 0)])
-def test_lorentzian_kernel_matches_plain(cuda, batch, n_w, M):
+@pytest.mark.parametrize("batch,n_w,M,eta", [(1, 37, 1000, 0.05),
+                                             (2, 1, 70000, 0.05),
+                                             (2, 1436, 50000, 0.05),
+                                             (1, 5, 0, 0.05),
+                                             (2, 100, 4194304, 8 / 1024)])
+def test_lorentzian_kernel_matches_plain(cuda, batch, n_w, M, eta):
+    """At BASELINE config 5's 4.19M pairs (η = 8/N, N = 1024) the float32
+    plain version's own rounding reaches a few 1e-4 relative, so there the
+    kernel is held against the plain version in float64."""
     g = torch.Generator(device="cpu").manual_seed(1)
     omega = torch.linspace(0.0 if n_w == 1 else 0.01, 4.0, n_w).expand(
         batch, n_w).contiguous()
@@ -71,12 +78,14 @@ def test_lorentzian_kernel_matches_plain(cuda, batch, n_w, M):
     w2 = torch.rand(batch, M, generator=g)
     omega, de, w2 = (x.to(cuda) for x in (omega, de, w2))
     before = kernels.LAUNCHES["weighted_lorentzian_sum"]
-    got = kernels.weighted_lorentzian_sum(omega, de, w2, 0.05)
+    got = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["weighted_lorentzian_sum"] == before + 1
-    want = kernels.weighted_lorentzian_sum_plain(omega, de, w2, 0.05)
+    ref = torch.float64 if M >= 2 ** 22 else torch.float32
+    want = kernels.weighted_lorentzian_sum_plain(
+        *(x.to(ref) for x in (omega, de, w2)), eta).float()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    again = kernels.weighted_lorentzian_sum(omega, de, w2, 0.05)
+    again = kernels.weighted_lorentzian_sum(omega, de, w2, eta)
     assert torch.equal(got, again)            # no atomics: bit-identical
 
 
@@ -472,3 +481,20 @@ def test_clean_benchmark_gate_passes_on_the_card(capsys):
         ["--fast", "--device", "cuda"]), log=lambda s: None)
     assert res["passed"] and res["diff"] < 0.02, res["diff"]
     assert res["acceptance"] > 0.5, res["acceptance"]
+
+
+def test_demo_32x32_on_the_card(cuda):
+    """``demo_32x32`` at 8×8 (bf16 rotations, its other defaults cut to 2
+    therm and 2 × 2 measured sweeps): finite, both kernels launched, K2 on
+    the narrow geometry (94 frequencies)."""
+    from dwavehmc_tpu_torch.drivers import demo_32x32 as demo
+
+    kn = dict(demo.knobs({}), L=8, therm=2, sweeps=2)
+    before = dict(kernels.LAUNCHES)
+    out, _, _ = demo.demo(kn, "cuda", log=lambda s: None)
+    assert out["finite"]
+    assert out["device"] == torch.cuda.get_device_name(cuda)
+    assert kernels.LAUNCHES["rotation_s_parts"] > before["rotation_s_parts"]
+    assert (kernels.LAUNCHES["weighted_lorentzian_sum"]
+            == before["weighted_lorentzian_sum"] + 2)
+    assert kernels._lorentzian_launch(94, 128 ** 2).R == 1
