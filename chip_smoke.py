@@ -116,7 +116,25 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    initial ensemble, disorder and decisions equal, the rest reported with
    the library's batch-size dependence beside it (``config5.mesh_exec``);
    counts are reset before and read after each;
-13. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+13. runs the measurement and audit tools (after 12, before the CLIs of
+   10): ``profile_production`` at its full width (64 chains of 24×24, Nt =
+   6, K = 10, bf16) cut to 1 therm sweep and 2-sweep segments, its
+   ``torch.profiler`` trace read by ``analyze_trace`` (the trace parsed, the
+   device's tracks CUDA streams holding K1, K1 on its schedule; the device
+   busy share, time by kernel family and top kernels printed)
+   (``profile.production``); ``bench_kernels`` at L = 24, batch 8, 3 reps,
+   every row and none failed (``bench.kernels``); ``bench_forces`` at L =
+   24 in float32, ``OK`` (``bench.forces``); ``spectra_parity_production``
+   on the three checkpoint chains, ``pass`` at the script's tolerances and
+   K2 twice a chain, its float64 oracle on the plain sums
+   (``spectra.parity_production``); ``ab_rotation``
+   at 24×24, batch 8, variants baseline and exp2_ph cut to a few sweeps,
+   the JAX script's keys and finite numbers (``ab.rotation``);
+   ``audit_rhos_dip`` cut to 4 + 6 sweeps, the report written and its
+   f-sum finite (``audit.rhos_dip``); ``debug_transport`` at its defaults
+   and at Δ = 0, ρ_s within 1e-8 of the analytic Drude weight
+   (``debug.transport``); counts are reset before and read after each;
+14. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -144,10 +162,6 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
-#: outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_FLOP_PER_S = 67e12
 #: operations per element (K1) and per Lorentzian (K2) counted for the bound:
 #: K1 ≈ gap, |T| (3 + sqrt), atan2, scale and clamp, two divisions, sign and
 #: four products; K2 = subtract, fused multiply-add, reciprocal, and a fused
@@ -210,9 +224,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
 
 def roofline(nbytes: float, ops: float) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for work
-    that moves ``nbytes`` and does ``ops`` float32 operations."""
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = ops / H100_FP32_FLOP_PER_S
+    that moves ``nbytes`` and does ``ops`` float32 operations, at the H100
+    SXM data sheet's HBM3 bandwidth and FP32 peak (``utils/flops.py``)."""
+    from dwavehmc_tpu_torch.utils.flops import (
+        H100_FP32_PEAK_TFLOPS,
+        H100_HBM_BYTES_PER_S,
+    )
+
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S
+    t_ops = ops / (H100_FP32_PEAK_TFLOPS * 1e12)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -604,19 +624,6 @@ def memory_phase(dev, lat, peak: int, power: str) -> None:
     check(peak > 0, "memory: no allocation over main.segment_K1")
 
 
-#: kernel-name fragments → family, first match wins
-FAMILIES = (("rotation_s", "K1 rotation_s"), ("lorentz", "K2 lorentzian"),
-            ("trsm", "triangular solve"), ("potrf", "cholesky"),
-            ("syev", "eigh"), ("sytrd", "eigh"), ("stedc", "eigh"),
-            ("ormtr", "eigh"), ("hetrd", "eigh"), ("heev", "eigh"),
-            ("unmtr", "eigh"), ("fft", "fft"),
-            ("gemm", "matmul"), ("gemv", "matmul"),
-            ("cutlass", "matmul"), ("xmma", "matmul"),
-            ("index", "gather/scatter"), ("scatter", "gather/scatter"),
-            ("gather", "gather/scatter"), ("reduce", "reduction"),
-            ("elementwise", "elementwise"), ("copy", "copy"))
-
-
 def _device_profile(fn) -> tuple[float, dict]:
     """(wall ms, device µs by kernel name) of one call of ``fn`` under
     ``torch.profiler``."""
@@ -638,10 +645,11 @@ def _device_profile(fn) -> tuple[float, dict]:
 
 
 def _profile_summary(wall_ms: float, kernels_us: dict) -> dict:
+    from dwavehmc_tpu_torch.drivers.analyze_trace import family
+
     families = {}
     for name, us in kernels_us.items():
-        fam = next((f for frag, f in FAMILIES if frag in name.lower()),
-                   "other")
+        fam = family(name)
         families[fam] = families.get(fam, 0.0) + us / 1e3
     busy_ms = sum(kernels_us.values()) / 1e3
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
@@ -2635,6 +2643,266 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
     return launches
 
 
+# --- the measurement and audit tools ------------------------------------------
+
+TOOLS_DIR = os.path.join(REPO, "build", "tools_smoke")
+#: ``profile_production`` at its full width (64 chains of 24×24, Nt = 6,
+#: K = 10, bf16), its depth cut from 6 therm and 3 × 20 sweeps to 1 and
+#: 3 × 2
+PROF_CUT = dict(therm=1, sweeps=2)
+#: ``ab_rotation`` at 24×24, batch 8 (not 64), two variants, cut from 10
+#: therm, 3 paired and 3 × 10 sweeps to 1, 1 and 3 × 2
+AB_CUT = dict(batch=8, therm=1, paired=1, sweeps=2)
+AB_VARIANTS = "baseline,exp2_ph"
+#: an ``ab_rotation`` row's keys (the JAX script's)
+AB_ROW_KEYS = {"variant", "rot_scheme", "ns_steps", "use_pallas_s",
+               "exact_solver", "max_dH_err", "mean_dH_err",
+               "paired_nonfinite", "traj_per_sec", "acceptance",
+               "segment_med_dH", "segment_mean_dH", "lag_bias_flag",
+               "model_tflops", "mfu_pct_nominal", "wall_s"}
+#: ``audit_rhos_dip`` at its 12×12 width, cut from 20 therm + 100
+#: measurement sweeps to 4 + 6 (the β points need no anneal: all ≤ 100)
+AUDIT_CUT = dict(AUDIT_THERM="4", AUDIT_MEASURE="6")
+#: the bar of ``tests/test_transport.py`` for ρ_s against the analytic
+#: Drude weight of the clean normal state at 8×8
+DRUDE_TOL = 1e-8
+
+
+def _stdout_lines(fn) -> tuple:
+    """(fn(), its standard output as lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def profile_production_phase(dev, power: str) -> dict:
+    """``profile_production`` at its full width, cut by ``PROF_CUT``: the
+    trace parses, K1 is on the device's tracks and on its schedule, the
+    device's tracks are CUDA stream tracks, traj/s and acceptance are
+    finite; the device's busy share, time by kernel family and top kernels
+    are printed."""
+    import shutil
+
+    from dwavehmc_tpu_torch.drivers import profile_production as pp
+
+    kn = dict(pp.knobs({}), L=L_MAIN, **PROF_CUT)
+    trace_dir = os.path.join(TOOLS_DIR, f"trace_{kn['L']}x{kn['L']}"
+                             f"_b{kn['batch']}")
+    shutil.rmtree(trace_dir, ignore_errors=True)   # this run's trace alone
+    out, launches, sec = _counted(lambda: pp.profile(
+        kn, dev, trace_dir, log=lambda m: print(m, file=sys.stderr)))
+    track = dict(tracked=pp.TRACKED_ITERS, refine=pp.REFINE_ITERS,
+                 polish=pp.POLISH_ITERS)
+    k1_want = (expected_rotations(kn["therm"], kn["anchor_every"],
+                                  pp.NT_THERM, **track)
+               + 3 * expected_rotations(kn["sweeps"], kn["anchor_every"],
+                                        kn["Nt"], **track))
+    device = out["track_analyses"][0]["device"] if out["track_analyses"] \
+        else {}
+    emit({"phase": "profile.production", "knobs": kn,
+          **{k: out[k] for k in ("wall_s_plain", "wall_s_traced",
+                                 "traj_per_sec", "acceptance",
+                                 "model_tflops",
+                                 "model_mfu_pct_nominal_peak",
+                                 "trace_error")},
+          "nominal_peak": out["config"]["nominal_peak"]["name"],
+          "device_tracks": device.get("tracks"),
+          "device_busy_pct": device.get("busy_pct"),
+          "device_busy_ms": device.get("busy_ms"),
+          "window_ms": device.get("window_ms"),
+          "family_ms": device.get("family_ms"),
+          "top_kernels_ms": {k[:90]: v for k, v in
+                             (device.get("top_kernels_ms") or {}).items()},
+          "self_time": out["device_self_time_by_hlo_category"],
+          "seconds": sec, "launches": launches, "k1_expected": k1_want,
+          "gpu": power})
+    check(out["trace_error"] is None,
+          f"profile.production: the trace failed: {out['trace_error']}")
+    check(device.get("events", 0) > 0,
+          "profile.production: no device event in the trace")
+    check(device["family_ms"].get("K1 rotation_s", 0.0) > 0.0,
+          "profile.production: K1 is not on the device's tracks")
+    check(all("stream" in t.lower() for t in device["tracks"]),
+          f"profile.production: device tracks {device['tracks']} are not "
+          "CUDA stream tracks")
+    check(np.isfinite(out["traj_per_sec"]) and np.isfinite(out["acceptance"]),
+          "profile.production: non-finite traj/s or acceptance")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"profile.production: {launches['rotation_s_parts']} K1 launches, "
+          f"the schedule implies {k1_want}")
+    return launches
+
+
+def bench_kernels_phase(dev, power: str) -> dict:
+    """``bench_kernels`` at L = 24, batch 8, 3 reps: exit code 0 (no row
+    failed), every row printed; K1 in the tracked refinement rows."""
+    from dwavehmc_tpu_torch.drivers import bench_kernels as bk
+
+    argv = ["--device", dev.type, "--L", str(L_MAIN), "--batch", "8",
+            "--reps", "3"]
+    (_, lines), launches, sec = _counted(
+        lambda: _stdout_lines(lambda: bk.main(argv)))
+    # n_iter = 1, 4, 8, each called once to warm up and 3 times timed
+    k1_want = (1 + 3) * (1 + 4 + 8)
+    emit({"phase": "bench.kernels", "argv": argv[2:], "rows": lines,
+          "seconds": sec, "launches": launches, "k1_expected": k1_want,
+          "gpu": power})
+    check(len(lines) == 11 and not any("FAILED" in ln for ln in lines),
+          "bench.kernels: a row is missing or failed")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"bench.kernels: {launches['rotation_s_parts']} K1 launches, "
+          f"expected {k1_want}")
+    return launches
+
+
+def bench_forces_phase(dev, power: str) -> dict:
+    """``bench_forces`` at L = 24 in float32: the two formulations agree
+    (``OK``); their times printed."""
+    from dwavehmc_tpu_torch.drivers import bench_forces as bf
+
+    argv = ["--device", dev.type, "--L", str(L_MAIN), "--dtype", "float32"]
+    (_, lines), launches, sec = _counted(
+        lambda: _stdout_lines(lambda: bf.main(argv)))
+    emit({"phase": "bench.forces", "argv": argv[2:], "lines": lines,
+          "seconds": sec, "launches": launches, "gpu": power})
+    check(lines[0].endswith(" OK"), f"bench.forces: {lines[0]}")
+    return launches
+
+
+def spectra_parity_phase(dev, power: str) -> dict:
+    """``spectra_parity_production`` on the three checkpoint chains at
+    24×24: ``pass`` true at the script's tolerances, each observable's
+    error relative to its peak printed; K2 twice a chain (the production
+    leg's σ_DC and σ(ω); the float64 oracle leg runs the plain sums)."""
+    from dwavehmc_tpu_torch.drivers import spectra_parity_production as spp
+
+    out, launches, sec = _counted(lambda: spp.parity(
+        spp.CHECKPOINT, dev, log=lambda m: print(m, file=sys.stderr)))
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    with open(os.path.join(TOOLS_DIR, "spectra_parity_24x24.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    emit({"phase": "spectra.parity_production", "pass": out["pass"],
+          "chains": [{"chain": r["chain"],
+                      "eigh_evals_rel": r["eigh_evals"]["max_abs"]
+                      / r["eigh_evals"]["scale"],
+                      "rel_to_peak": {k: r[k]["rel_to_peak"]
+                                      for k in spp.OBSERVABLES},
+                      "rho_s": [r["superfluid_stiffness"]["production"],
+                                r["superfluid_stiffness"]["oracle"]],
+                      "f_sum": r["f_sum"]} for r in out["chains"]],
+          "tolerances": out["tolerances"], "seconds": sec,
+          "launches": launches, "gpu": power})
+    check(out["pass"], "spectra.parity_production: outside the tolerances")
+    check(launches["weighted_lorentzian_sum"] == 2 * len(out["chains"]),
+          f"spectra.parity_production: {launches['weighted_lorentzian_sum']}"
+          " K2 launches, expected 2 a chain")
+    return launches
+
+
+def ab_rotation_phase(dev, power: str) -> dict:
+    """``ab_rotation`` at 24×24 cut by ``AB_CUT``, variants baseline and
+    exp2_ph: every row has the JAX script's keys and finite numbers, no
+    variant failed, K1 launched."""
+    from dwavehmc_tpu_torch.drivers import ab_rotation as abr
+
+    kn = dict(abr.knobs({}), L=L_MAIN, **AB_CUT)
+    out, launches, sec = _counted(lambda: abr.ab_rotation(
+        kn, abr.select(AB_VARIANTS), dev,
+        log=lambda m: print(m, file=sys.stderr)))
+    emit({"phase": "ab.rotation", "config": out["config"],
+          "results": out["results"], "seconds": sec, "launches": launches,
+          "gpu": power})
+    for row in out["results"]:
+        check(set(row) == AB_ROW_KEYS, f"ab.rotation: {row['variant']} "
+              f"keys {sorted(set(row) ^ AB_ROW_KEYS)} differ")
+        check(all(np.isfinite(row[k]) for k in AB_ROW_KEYS
+                  if isinstance(row[k], float)),
+              f"ab.rotation: {row['variant']} has a non-finite number")
+    check([r["variant"] for r in out["results"]] == AB_VARIANTS.split(","),
+          "ab.rotation: variants missing")
+    check(launches["rotation_s_parts"] > 0, "ab.rotation: K1 not launched")
+    return launches
+
+
+def audit_rhos_dip_phase(dev, power: str) -> dict:
+    """``audit_rhos_dip`` at its 12×12 width (complex float64 on the card,
+    3 β × 3 replicas), cut by ``AUDIT_CUT``: the report is written and its
+    f-sum numbers are finite; the verdict is printed (this depth cannot
+    decide it)."""
+    from dwavehmc_tpu_torch.drivers import audit_rhos_dip as audit
+
+    out = os.path.join(TOOLS_DIR, "rhos_dip_audit.json")
+    argv = ["--device", dev.type, "--root",
+            os.path.join(TOOLS_DIR, "rhos_dip_audit_f64"), "--out", out]
+    saved = {k: os.environ.get(k) for k in AUDIT_CUT}
+    os.environ.update(AUDIT_CUT)
+    try:
+        (rep, _), launches, sec = _counted(
+            lambda: _stdout_lines(lambda: audit.main(argv)))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fs = rep["f_sum_check"]["points"]
+    emit({"phase": "audit.rhos_dip", "cut": AUDIT_CUT,
+          "dip_is_physics_at_this_depth": rep["dip_is_physics"],
+          "points": {b: {k: p[k] for k in ("rho_s_gap", "combined_sem",
+                                           "agree")}
+                     | {"f64_rho_s": p["f64_oracle"]["rho_s"],
+                        "f32_rho_s": p["f32_production"]["rho_s"],
+                        "f64_acceptance": p["f64_oracle"]["acceptance"]}
+                     for b, p in rep["points"].items()},
+          "f_sum": {b: {g: r[g]["rel_err"] for g in r}
+                    for b, r in fs.items()},
+          "seconds": sec, "launches": launches, "gpu": power})
+    check(os.path.exists(out), "audit.rhos_dip: no report written")
+    check(all(np.isfinite(r[g][k]) for r in fs.values() for g in r
+              for k in ("s_grid", "s_pred_pi_lambda", "rel_err")),
+          "audit.rhos_dip: a non-finite f-sum number")
+    check(launches["weighted_lorentzian_sum"] > 0,
+          "audit.rhos_dip: K2 not launched")
+    return launches
+
+
+def debug_transport_phase(dev, power: str) -> None:
+    """``debug_transport`` at its defaults (8×8, float64), then the clean
+    normal state (``--delta 0``): ρ_s within ``DRUDE_TOL`` of the analytic
+    Drude weight."""
+    from dwavehmc_tpu_torch.drivers import debug_transport as dbg
+
+    runs = {}
+    for extra in ([], ["--delta", "0"]):
+        lines = []
+        terms = dbg.inspect(dbg.parser().parse_args(
+            ["--device", dev.type, *extra]), out=lines.append)
+        runs[" ".join(extra) or "defaults"] = {"lines": lines, **terms}
+    emit({"phase": "debug.transport", "runs": runs, "gpu": power})
+    diff = runs["--delta 0"]["drude_diff"]
+    check(diff <= DRUDE_TOL, f"debug.transport: ρ_s is {diff:.2e} off the "
+          "analytic Drude weight")
+
+
+def tools_phases(dev, power: str) -> dict:
+    """The measurement and audit tools; their kernel launches summed."""
+    total = {}
+    for phase in (profile_production_phase, bench_kernels_phase,
+                  bench_forces_phase, spectra_parity_phase,
+                  ab_rotation_phase, audit_rhos_dip_phase):
+        for name, n in phase(dev, power).items():
+            total[name] = total.get(name, 0) + n
+    debug_transport_phase(dev, power)
+    return total
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2713,6 +2981,8 @@ def main(argv=None) -> int:
             launches[name] += n
     torch.cuda.empty_cache()
     for name, n in config5_mesh_exec_phase(dev, power, W).items():
+        launches[name] += n
+    for name, n in tools_phases(dev, power).items():
         launches[name] += n
     postprocess_cli_phase(power)
     quickcheck_phase(power)

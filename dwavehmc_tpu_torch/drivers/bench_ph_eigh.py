@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import torch
 
@@ -31,6 +30,7 @@ from ..models.params import make_params
 from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..utils.device import resolve_device
 from ..utils.precision import PRECISIONS
+from ..utils.profiling import call_ms
 
 
 def parser() -> argparse.ArgumentParser:
@@ -74,27 +74,6 @@ def build_batch(L: int, batch: int, generator: torch.Generator,
     return M.to(torch.float32)
 
 
-def best_ms(fn, M: torch.Tensor, reps: int):
-    """(least milliseconds of ``reps`` calls after one warm-up, the last
-    output): CUDA events on the card, the host clock elsewhere."""
-    out = fn(M)
-    times = []
-    for _ in range(reps):
-        if M.is_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(M)
-            stop.record()
-            stop.synchronize()
-            times.append(start.elapsed_time(stop))
-        else:
-            t0 = time.perf_counter()
-            out = fn(M)
-            times.append(1e3 * (time.perf_counter() - t0))
-    return min(times), out
-
-
 def race(M: torch.Tensor, ns: argparse.Namespace, log=print):
     """(the JSON record, the PH solver's output (evals, X, Y)) for the
     batch ``M``."""
@@ -103,12 +82,15 @@ def race(M: torch.Tensor, ns: argparse.Namespace, log=print):
                                         lift_precision=ns.lift_prec,
                                         floor=ns.floor)
 
-    t_ph, out_ph = best_ms(ph, M, ns.reps)
+    times, out_ph = call_ms(lambda: ph(M), ns.reps, M.device)
+    t_ph = min(times)
     log(f"ph: {t_ph:.1f} ms")
     res = {"shape": list(M.shape), "ph_ms": t_ph, "n_lift": ns.n_lift,
            "orth": ns.orth, "lift_prec": ns.lift_prec, "floor": ns.floor}
     if not ns.skip_qdwh:
-        t_q, out_q = best_ms(bdg_real.diagonalize_embedding, M, ns.reps)
+        times, out_q = call_ms(lambda: bdg_real.diagonalize_embedding(M),
+                               ns.reps, M.device)
+        t_q = min(times)
         log(f"qdwh: {t_q:.1f} ms")
         res.update(qdwh_ms=t_q, speedup=t_q / t_ph)
     else:

@@ -118,25 +118,31 @@ def paramagnetic_term(evals, f, J2, beta, n_sites):
     return torch.sum(ratio * J2, dim=(-2, -1)) / n_sites
 
 
-def dc_conductivity(evals, f, J2, beta, eta: float, n_sites):
+def dc_conductivity(evals, f, J2, beta, eta: float, n_sites,
+                    lorentzian_sum=None):
     """σ_DC = (π/N) Σ_nm β f_n(1−f_n)·|J_nm|²·L(E_m−E_n; η), via K2 at the
-    single frequency ω = 0."""
+    single frequency ω = 0 (``lorentzian_sum``: K2 when None; an oracle
+    passes K2's plain version, which keeps the working dtype on the card
+    too)."""
     B = evals.shape[0]
     dE = _pair_differences(evals).reshape(B, -1)
     w = (chain_view(beta, 2) * f * (1.0 - f))[:, :, None]
     w2 = (w * J2).reshape(B, -1)
     omega = torch.zeros((B, 1), dtype=evals.dtype, device=evals.device)
-    s = weighted_lorentzian_sum(omega, -dE, w2, eta)
+    s = (lorentzian_sum or weighted_lorentzian_sum)(omega, -dE, w2, eta)
     return (math.pi / n_sites) * s[:, 0].to(evals.dtype)
 
 
-def optical_conductivity(omega_grid, evals, f, J2, eta: float, n_sites):
+def optical_conductivity(omega_grid, evals, f, J2, eta: float, n_sites,
+                         lorentzian_sum=None):
     """Re σ(ω) = (π/N) Σ_nm (f_n−f_m)/ω·|J_nm|²·L(ω−ΔE; η) on the positive
-    grid ``omega_grid`` (n_ω,), via K2."""
+    grid ``omega_grid`` (n_ω,), via K2 (``lorentzian_sum`` as in
+    ``dc_conductivity``)."""
     B = evals.shape[0]
     dE = _pair_differences(evals).reshape(B, -1)
     W2 = ((f[:, :, None] - f[:, None, :]) * J2).reshape(B, -1)
-    s = weighted_lorentzian_sum(omega_grid.expand(B, -1), dE, W2, eta)
+    s = (lorentzian_sum or weighted_lorentzian_sum)(
+        omega_grid.expand(B, -1), dE, W2, eta)
     return (math.pi / n_sites) * (s.to(evals.dtype) / omega_grid)
 
 
@@ -195,10 +201,11 @@ def fermi_surface_map(lat: LatticeSpec, evals, evecs, eta,
 
 
 def measure_transport_and_spectra(lat: LatticeSpec, spec: SpectralSpec,
-                                  params: ModelParams,
-                                  state: HMCState) -> SpectrumResult:
+                                  params: ModelParams, state: HMCState,
+                                  lorentzian_sum=None) -> SpectrumResult:
     """Full heavy measurement from an HMCState of B chains: two K2 launches
-    on the card (σ_DC, then σ(ω))."""
+    on the card (σ_DC, then σ(ω)); ``lorentzian_sum`` as in
+    ``dc_conductivity``."""
     N = lat.n_sites
     beta, t, tp = params.beta, params.t, params.tp
     evals, evecs = state.evals, state.evecs
@@ -215,9 +222,10 @@ def measure_transport_and_spectra(lat: LatticeSpec, spec: SpectralSpec,
 
     return SpectrumResult(
         superfluid_stiffness=dia - lam,
-        dc_conductivity=dc_conductivity(evals, f, J2, beta, eta, N),
+        dc_conductivity=dc_conductivity(evals, f, J2, beta, eta, N,
+                                        lorentzian_sum),
         optical_conductivity=optical_conductivity(omega, evals, f, J2, eta,
-                                                  N),
+                                                  N, lorentzian_sum),
         dos=density_of_states(lat, dosgrid, evals, evecs, eta),
         dos_AN=antinodal_dos(lat, dosgrid, evals, evecs, eta),
         A_k0=fermi_surface_map(lat, evals, evecs, eta))

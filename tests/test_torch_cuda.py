@@ -498,3 +498,61 @@ def test_demo_32x32_on_the_card(cuda):
     assert (kernels.LAUNCHES["weighted_lorentzian_sum"]
             == before["weighted_lorentzian_sum"] + 2)
     assert kernels._lorentzian_launch(94, 128 ** 2).R == 1
+
+
+def test_spectra_parity_function_on_the_card_at_12x12(cuda):
+    """``spectra_parity_production``'s per-chain comparison at 12×12 on a
+    seeded random Δ and disorder: the card's float32 production leg (K2
+    twice) within the script's tolerances of the float64 oracle on the CPU;
+    the card's own oracle, float64 on K2's plain sums with no K2 launch,
+    within 1e-9 of the CPU's, relative to each observable's peak."""
+    import numpy as np
+
+    from dwavehmc_tpu_torch.drivers import spectra_parity_production as spp
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+
+    rng = np.random.default_rng(12)
+    lat = LatticeSpec(12, 12)
+    N = lat.n_sites
+    delta = (0.2 * rng.uniform(0.5, 1.5, (N, 2))
+             * np.exp(2j * np.pi * rng.uniform(size=(N, 2))))
+    disorder = np.zeros(N, np.float32)
+    disorder[rng.permutation(N)[:round(0.05 * N)]] = 1.0
+    spec = spp.production_spec(lat)
+    args = (lat, spec, delta.astype(np.complex64), disorder,
+            1.0 / spp.T_POINT)
+    before = kernels.LAUNCHES["weighted_lorentzian_sum"]
+    prod = spp.production_leg(*args, "cuda")
+    assert kernels.LAUNCHES["weighted_lorentzian_sum"] == before + 2
+    cpu = spp.oracle_leg(*args, "cpu")
+    row = spp.compare(prod, cpu)
+    assert row["eigh_evals"]["max_abs"] <= (
+        spp.TOL_EV * row["eigh_evals"]["scale"])
+    for k in spp.OBSERVABLES:
+        assert row[k]["rel_to_peak"] <= spp.TOL_REL, (k, row[k])
+    before = kernels.LAUNCHES["weighted_lorentzian_sum"]
+    card = spp.oracle_leg(*args, "cuda")
+    assert kernels.LAUNCHES["weighted_lorentzian_sum"] == before
+    for k in spp.OBSERVABLES:
+        assert spp.diff(card[1][k], cpu[1][k])["rel_to_peak"] <= 1e-9, k
+    for k, rel in cpu[2].items():
+        assert abs(card[2][k] - rel) <= 1e-4, k
+
+
+def test_bench_forces_formulations_agree_on_the_card(cuda):
+    """``bench_forces``' equivalence in float32 on the card (16×16, 4
+    chains of an ``init_ensemble`` ensemble): the row contraction and the
+    matmul-diagonal ρ within the script's 1e-4."""
+    from dwavehmc_tpu_torch.drivers import bench_forces as bf
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel.ensemble import init_ensemble
+
+    lat = LatticeSpec(16, 16)
+    params = make_params(W=1.0, n_imp=0.05, beta=bf.BETA, J=0.8,
+                         dtype=torch.float32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(bf.SEED)
+    st = init_ensemble(lat, params, gen, 4, dtype=torch.float32, n_imp=0.05,
+                       device=cuda)
+    diff, tol = bf.equivalence(lat, st.evals, st.evecs, params.beta)
+    assert tol == 1e-4 and diff < tol, diff
