@@ -16,6 +16,12 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    host's launch rate); holds K2 on the σ(ω) path's signed weights against
    a float64 plain run (error at most 4× the float32 plain version's, or
    1e-5);
+   then builds K3 ``chain_sum`` and K4 ``chain_matvec`` (the sweep's
+   per-chain sums in one halving tree) and holds each against its plain
+   version at the main path's shapes and others, float32 and float64: they
+   must be bit-equal, and a block of a batch alone must get the batch's
+   bits; times each beside its plain version and the one PyTorch call that
+   computes the same function;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
    float64 ``eigh`` within 4× float32 ``eigh``'s error (or 1e-5·‖M‖∞),
@@ -25,7 +31,9 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    the guard on further seeded random-Δ batches of the same shape, each
    chain's smallest level over ‖M‖∞ in float32 (the guard's) and, near the
    floor, in float64: a fallback where float64 puts every level above the
-   floor is a false one (``anchor.ph_draws``);
+   floor is a false one and there must be none; a chain whose float32
+   CholeskyQR³ broke down must be the one the guard rescued, its
+   eigenvalue error at most the healthy chains' (``anchor.ph_draws``);
 4. holds a small run on the card (float32, kernels) against the same run on
    the CPU (float64, plain versions), once per exact solver (qdwh, ph);
 5. drives the main path — the 24×24 production configuration, 8 chains at 8
@@ -113,8 +121,10 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    of 32×32) under W ranks, in float64 and float32: bit-equal to the
    ranks' blocks run one after another in this process (initial and final
    disorder and Δ, accepts, dH), and against the one-process batch the
-   initial ensemble, disorder and decisions equal, the rest reported with
-   the library's batch-size dependence beside it (``config5.mesh_exec``);
+   initial ensemble, disorder and decisions equal, and, in each dtype in
+   which every call the sweep makes gives a block the batch's bits (the
+   probe ``_batch_invariance``; K3 and K4 must), every saved array
+   bit-equal; the calls that are not are named (``config5.mesh_exec``);
    counts are reset before and read after each;
 13. runs the measurement and audit tools (after 12, before the CLIs of
    10): ``profile_production`` at its full width (64 chains of 24×24, Nt =
@@ -134,7 +144,13 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    f-sum finite (``audit.rhos_dip``); ``debug_transport`` at its defaults
    and at Δ = 0, ρ_s within 1e-8 of the analytic Drude weight
    (``debug.transport``); counts are reset before and read after each;
-14. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+14. runs the headline benchmark ``drivers/bench.bench`` at its full widths
+   (16×16 at 8 chains with its three modes and the eigh figures, 64 ×
+   24×24, 40 × 32×32) with its depth cut (``BENCH_CUT``,
+   ``BENCH_LEG_CUT``): every mode and leg finite traj/s and an acceptance
+   in [0, 1], no error, K1 on its schedule, no K2, the PH guard's
+   fallbacks and rescues reported (``bench``);
+15. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -411,6 +427,89 @@ def kernel_phases(dev, gen, power: str):
                 bound_ms=bound_ms, bound_by=bound_by)
         del de, w2, got, want, again
     signed_phase(dev, gen, grid, spec.eta, power)
+    return table
+
+
+#: K3 and K4 (``csrc/chain_sum.cu``) at the main path's shapes first (the
+#: energies' and the σ-cap's sums over 2N = 1152 values of 8 chains, the
+#: σ-cap's (8, 1152, 1152) product), then unaligned, production-batch,
+#: config-5 float64 and longest-row cases: (name, rows or chains, length,
+#: dtype, is the main path's)
+CHAIN_CASES = (("chain_sum", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
+               ("chain_sum", 3, 7, "float32", False),
+               ("chain_sum", 64, 2 * L_MAIN * L_MAIN, "float32", False),
+               ("chain_sum", N_CHAINS * 1152, 1152, "float32", False),
+               ("chain_sum", 8, 2 * C5_L * C5_L, "float64", False),
+               ("chain_sum", 2, 16384, "float64", False),
+               ("chain_matvec", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32",
+                True),
+               ("chain_matvec", 3, 5, "float32", False),
+               ("chain_matvec", 8, 2 * C5_L * C5_L, "float64", False),
+               ("chain_matvec", 1, 4096, "float64", False))
+
+
+def chain_kernel_phases(dev, power: str) -> dict:
+    """K3 and K4 against their plain versions (the same halving tree: the
+    results must be bit-equal), each also on the first half of its batch
+    alone (the same bits as inside the batch), timed beside the plain
+    version and the one PyTorch call that computes the same function
+    (``torch.sum``; the complex ``matmul``).  Inputs from a generator of
+    their own."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    table = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name, B, m, dtype, main in CHAIN_CASES:
+        dt = getattr(torch, dtype)
+        if name == "chain_sum":
+            args = (torch.randn(B, m, generator=g, device=dev, dtype=dt),)
+            lib = lambda x: x.sum(-1)  # noqa: E731
+            nbytes, ops = dt.itemsize * (B * m + B), B * m
+        else:
+            args = tuple(torch.randn(*s, generator=g, device=dev, dtype=dt)
+                         for s in ((B, m, m), (B, m, m), (B, m), (B, m)))
+            A = torch.complex(args[0], args[1])
+            v = torch.complex(args[2], args[3])[..., None]
+            lib = lambda *_: torch.matmul(A, v)  # noqa: E731
+            nbytes, ops = dt.itemsize * (2 * B * m * m + 4 * B * m), \
+                8 * B * m * m
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        before = kernels.LAUNCHES[name]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[name] == before + 1,
+              f"{name} wrapper did not count its launch")
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        bit_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        k = max(1, B // 2)
+        alone = kernel(*(x[:k] for x in args))
+        alone = alone if isinstance(alone, tuple) else (alone,)
+        invariant = all(bool(torch.equal(a[:k], b))
+                        for a, b in zip(got, alone))
+        row = {"phase": f"kernel.{name}", "shape": [B, m], "dtype": dtype,
+               "max_abs_err": err, "bit_equal_plain": bit_equal,
+               "block_alone_bit_equal": invariant,
+               "launches": kernels.LAUNCHES[name], "gpu": power}
+        if main:
+            ms = cuda_ms(lambda: kernel(*args), 20, graph=True)
+            plain_ms = cuda_ms(lambda: plain(*args), 5)
+            library_ms = cuda_ms(lambda: lib(*args), 20, graph=True)
+            bound_ms, bound_by = roofline(nbytes, ops)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=library_ms)
+        emit(row)
+        check(bit_equal, f"{name} at {(B, m)} {dtype}: differs from its "
+              f"plain version by {err}")
+        check(invariant, f"{name} at {(B, m)} {dtype}: a block alone gets "
+              "other bits than inside the batch")
+        del args, got, want, alone
     return table
 
 
@@ -881,19 +980,49 @@ PH_DRAW_BATCHES = 8
 PH_DRAW_NEAR = 4.0
 
 
+def _other_rescues(M, sgn, w64) -> dict:
+    """The broken-down chains' largest eigenvalue error against float64
+    (``w64``, one per doubled level) under the two rescues the guard does
+    not use: CholeskyQR³'s passes in float64 on the float32 sketch Y, and
+    the matmul-only ``orth_ns`` of Y; each then a float32 Ritz step."""
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    Y = ph_eigh._sketched(M, sgn)
+    out = {}
+    for name, Q in (("float64_passes", ph_eigh.cholqr2(Y.double()).float()),
+                    ("orth_ns", ph_eigh.orth_ns(Y))):
+        wt, _ = ph_eigh._ritz(M, Q)
+        half = w64.shape[-1] // 2
+        out[name] = (wt[..., ::2].double() - w64[..., half:]).abs().amax(
+            -1).tolist()
+    return out
+
+
+def _sketch_condition(M, sgn) -> list:
+    """κ of each chain's float32 sketch Y = P₊G, from its float64 singular
+    values."""
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    sv = torch.linalg.svdvals(ph_eigh._sketched(M, sgn).double())
+    return (sv[..., 0] / sv[..., -1]).tolist()
+
+
 def ph_draws_phase(dev, power: str) -> None:
     """The guarded PH anchor on ``PH_DRAW_BATCHES`` seeded batches of the
     main path's shape (8 × 2304, a random Δ start, as ``anchor.ph``'s): per
     batch whether it fell back, the sign iteration's largest residual
     against ``PH_GUARD_RESID``, the smallest |Ritz value| / ‖M‖∞ against
-    ``PH_GUARD_RATIO`` (the guard's own quantities, recomputed), the chains
-    whose positive basis (``positive_basis``, CholeskyQR³) came out
-    non-finite, and, for chains within ``PH_DRAW_NEAR``× of the ratio
-    floor, the same ratio from float64 ``eigvalsh``.  A broken-down basis
-    is NaN-zeroed before the Ritz step, so its chain shows a Ritz value of
-    0 and the batch falls back through the ratio test.  A fallback is
-    false when float64 puts every level above the floor and no basis broke
-    down; their count must be 0, the breakdowns' is reported."""
+    ``PH_GUARD_RATIO`` (the guard's own quantities, recomputed without the
+    rescue), the chains whose float32 CholeskyQR³ broke down (a non-finite
+    ``positive_basis``) and which the guard rescued (``GUARD["rescued"]``),
+    and, for chains within ``PH_DRAW_NEAR``× of the ratio floor, the same
+    ratio from float64 ``eigvalsh``.  On a batch with a rescue: each
+    chain's eigenvalue error against float64 ``eigvalsh`` (a rescued
+    chain's must be at most the worst healthy chain's), the rescued
+    chains' error under the two rescues the guard does not use
+    (``_other_rescues``), each chain's κ(P₊G) (``_sketch_condition``),
+    and the guarded solve's device ms.  A fallback where float64 puts every level above
+    the floor is a false one: their count must be 0 (F5)."""
     from dwavehmc_tpu_torch.ops import ph_eigh
 
     rows = []
@@ -901,7 +1030,8 @@ def ph_draws_phase(dev, power: str) -> None:
         g = torch.Generator(device=dev).manual_seed(1001 + i)
         M = _anchor_batch(dev, g)
         ph_eigh.reset_guard()
-        fb = ph_eigh.diagonalize_embedding_ph_guarded(M)[3]
+        ev, _, _, fb = ph_eigh.diagonalize_embedding_ph_guarded(M)
+        guard = dict(ph_eigh.GUARD)
         sgn, resid = ph_eigh.sign_embedding(M, return_resid=True)
         Q = ph_eigh.positive_basis(M, sgn)
         broken = torch.nonzero(~torch.isfinite(Q).all(-1).all(-1))
@@ -910,24 +1040,40 @@ def ph_draws_phase(dev, power: str) -> None:
         ratio = (wt.abs().amin(-1) / lam).double().cpu()
         near = torch.nonzero(ratio < PH_DRAW_NEAR * ph_eigh.PH_GUARD_RATIO)
         ratio64 = ratio.clone()
+        del Q, wt
         if len(near):
             idx = near[:, 0].to(dev)
             w64 = torch.linalg.eigvalsh(M[idx].double())
             ratio64[near[:, 0]] = (w64.abs().amin(-1)
                                    / lam[idx].double()).cpu()
         below = bool((ratio64 <= ph_eigh.PH_GUARD_RATIO).any())
-        rows.append({"seed": 1001 + i, "fell_back": fb,
-                     "guard": dict(ph_eigh.GUARD),
-                     "max_resid": float(resid.max()),
-                     "resid_passed": bool(
-                         (resid < ph_eigh.PH_GUARD_RESID).all()),
-                     "min_ratio_f32": ratio.tolist(),
-                     "min_ratio_f64_near": {int(c): float(ratio64[c])
-                                            for c in near[:, 0]},
-                     "basis_nonfinite_chains": broken[:, 0].tolist(),
-                     "level_below_floor_f64": below,
-                     "false_fallback": fb and not below and not len(broken)})
-        del M, sgn, Q, wt
+        row = {"seed": 1001 + i, "fell_back": fb, "guard": guard,
+               "max_resid": float(resid.max()),
+               "resid_passed": bool((resid < ph_eigh.PH_GUARD_RESID).all()),
+               "min_ratio_f32": ratio.tolist(),
+               "min_ratio_f64_near": {int(c): float(ratio64[c])
+                                      for c in near[:, 0]},
+               "basis_nonfinite_chains": broken[:, 0].tolist(),
+               "level_below_floor_f64": below,
+               "false_fallback": fb and not below}
+        if guard["rescued"]:
+            w64 = torch.linalg.eigvalsh(M.double())[..., ::2]
+            err = (ev.double() - w64).abs().amax(-1).cpu()
+            bad = row["basis_nonfinite_chains"]
+            healthy = [float(err[c]) for c in range(len(err))
+                       if c not in bad]
+            row.update(eval_err=err.tolist(),
+                       eval_err_healthy_max=max(healthy),
+                       eval_err_rescued={c: float(err[c]) for c in bad},
+                       eval_err_other_rescues=_other_rescues(
+                           M[bad], sgn[bad], w64[bad]),
+                       kappa_Y=_sketch_condition(M, sgn),
+                       guarded_ms=event_ms(
+                           lambda: ph_eigh.diagonalize_embedding_ph_guarded(
+                               M)))
+            del w64
+        rows.append(row)
+        del M, ev, sgn
     false = sum(r["false_fallback"] for r in rows)
     emit({"phase": "anchor.ph_draws", "batches": rows,
           "resid_floor": ph_eigh.PH_GUARD_RESID,
@@ -937,10 +1083,20 @@ def ph_draws_phase(dev, power: str) -> None:
               r["level_below_floor_f64"] for r in rows),
           "batches_with_a_basis_breakdown": sum(
               bool(r["basis_nonfinite_chains"]) for r in rows),
+          "rescued_chains": sum(r["guard"]["rescued"] for r in rows),
           "false_fallbacks": false, "gpu": power})
     check(false == 0, f"anchor.ph_draws: {false} fallbacks in "
-          f"{PH_DRAW_BATCHES} batches with every level above the floor and "
-          "a finite basis")
+          f"{PH_DRAW_BATCHES} batches with every level above the floor")
+    for r in rows:
+        check(r["guard"]["rescued"] == len(r["basis_nonfinite_chains"]),
+              f"anchor.ph_draws seed {r['seed']}: {r['guard']['rescued']} "
+              f"chains rescued, {len(r['basis_nonfinite_chains'])} broke "
+              "down")
+        for c, e in r.get("eval_err_rescued", {}).items():
+            check(e <= r["eval_err_healthy_max"],
+                  f"anchor.ph_draws seed {r['seed']}: rescued chain {c}'s "
+                  f"eigenvalue error {e} > the healthy chains' "
+                  f"{r['eval_err_healthy_max']}")
 
 
 # --- the scan entry point -----------------------------------------------------
@@ -2546,21 +2702,49 @@ def _mesh_exec_blocks(c5, dev, ns, dtype, W: int,
         for k in parts[0].files}, leapfrog
 
 
+#: the library and port calls a tracked sweep makes, by the probe's names
+#: (``_batch_invariance``): a sweep is batch-invariant when all of these are
+SWEEP_CALLS = ("matmul", "matmul_tn", "row_sum", "chain_sum", "chain_matvec",
+               "eigh")
+
+
 def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
-    """Whether three library calls give the first block of B / W chains the
-    same bits alone as inside the batch of B: the batched product
-    (B, n, n)·(B, n, n), the batched matrix-vector product (B, n, n)·(B, n,
-    1) (the σ-cap's power iteration) and the per-chain sum over (B, n) (the
-    energies' sums over the levels).  cuBLAS and PyTorch's reduction
-    kernels choose their launch by the batch's size."""
+    """Whether the calls a tracked sweep makes give the first block of
+    B / W chains the same bits alone as inside the batch of B: the batched
+    products (B, n, n)·(B, n, n) and (B, n, n)ᵀ·(B, n, n) (the rotations),
+    the forces' row sums over (B, n/2, n), K3 ``chain_sum`` over (B, n)
+    (the energies) and K4 ``chain_matvec`` (the σ-cap's power iteration),
+    and the embedding's ``eigh`` (the anchor, at (W, 2n, 2n), one chain
+    alone).  Also the two calls K3 and K4 replace: the per-chain
+    ``torch.sum`` over (B, n) and the batched matrix-vector product
+    (B, n, n)·(B, n, 1), whose launch cuBLAS and PyTorch's reduction kernels
+    choose by the batch's size."""
+    from dwavehmc_tpu_torch.models.bdg_real import symmetric_eigh
+    from dwavehmc_tpu_torch.ops import kernels
+
     g = torch.Generator(device=dev).manual_seed(7)
     a = torch.randn(B, n, n, generator=g, device=dev, dtype=dtype)
     v = torch.randn(B, n, 1, generator=g, device=dev, dtype=dtype)
     k = B // W
-    return {name: bool(torch.equal(f(a, v)[:k], f(a[:k], v[:k])))
-            for name, f in (("matmul", lambda x, y: x @ x),
-                            ("matvec", lambda x, y: x @ y),
-                            ("sum_per_chain", lambda x, y: y[..., 0].sum(-1)))}
+    calls = (("matmul", lambda x, y: x @ x),
+             ("matmul_tn", lambda x, y: x.mT @ x),
+             ("row_sum", lambda x, y: (x[:, :n // 2] * x[:, :n // 2])
+              .sum(-1)),
+             ("chain_sum", lambda x, y: kernels.chain_sum(y[..., 0])),
+             ("chain_matvec", lambda x, y: kernels.chain_matvec(
+                 x, x.mT.contiguous(), y[..., 0], -y[..., 0])[0]),
+             ("matvec", lambda x, y: x @ y),
+             ("sum_per_chain", lambda x, y: y[..., 0].sum(-1)))
+    out = {name: bool(torch.equal(f(a, v)[:k], f(a[:k], v[:k])))
+           for name, f in calls}
+    del a, v
+    h = torch.randn(W, 2 * n, 2 * n, generator=g, device=dev, dtype=dtype)
+    h = h + h.mT
+    w_all, v_all = symmetric_eigh(h)
+    w_one, v_one = symmetric_eigh(h[:1])
+    out["eigh"] = bool(torch.equal(w_all[:1], w_one)
+                       and torch.equal(v_all[:1], v_one))
+    return out
 
 
 def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
@@ -2573,10 +2757,12 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
     run one after another in this process (``_mesh_exec_blocks``).  Against
     the one-process batch of 8 the initial ensemble, the disorder and the
     decisions must be equal; the final Δ and dH are reported, beside
-    whether the library calls the sweep makes give a block the same bits
-    alone as in the batch (``_batch_invariance``; they do not, ROADMAP
-    fault F6) and how far one leapfrog of a block alone lands from the
-    batch's.  mesh_exec runs Nt = 2 at the Nt = 6 step (dt = 0.105, 3.3×
+    whether the calls the sweep makes give a block the same bits alone as
+    in the batch (``_batch_invariance``; K3 and K4 must) and how far one
+    leapfrog of a block alone lands from the batch's.  Where every call of
+    ``SWEEP_CALLS`` is batch-invariant in a dtype, every saved array must
+    be bit-equal to one process (ROADMAP fault F6); the others are named
+    under ``blocked_by``.  mesh_exec runs Nt = 2 at the Nt = 6 step (dt = 0.105, 3.3×
     the Nt = 20 one) from a cold start, so one rounding's difference grows
     over the trajectory.  W ranks, 8 distinct realizations, finite dH.  Returns the
     launches of the one-process calls (the ranks count their own)."""
@@ -2584,8 +2770,9 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
 
     work = os.path.join(REPO, "build", "config5_smoke")
     ns = c5.parser().parse_args(C5_EXEC_ARGS)
-    launches = dict.fromkeys(("rotation_s_parts", "weighted_lorentzian_sum"),
-                             0)
+    from dwavehmc_tpu_torch.ops import kernels
+
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
     res = {"phase": "config5.mesh_exec", "W": W}
     runs = {}
     for name in ("float64", "float32"):
@@ -2618,6 +2805,8 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
             "seconds_one_process": sec_one, "launcher_seconds": sec_ranks,
             "batch_invariant": _batch_invariance(
                 dev, dtype, ns.batch, 2 * ns.L * ns.L, W)}
+        res[name]["blocked_by"] = [
+            c for c in SWEEP_CALLS if not res[name]["batch_invariant"][c]]
         blocks, leapfrog = _mesh_exec_blocks(c5, dev, ns, dtype, W, work)
         res[name]["bit_equal_blocks"] = {
             k: bool(np.array_equal(blocks[k], b[k])) for k in b}
@@ -2638,6 +2827,17 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
             check(res[name]["bit_equal_one_process"][k],
                   f"config5.mesh_exec {name}: the ranks' {k} differs from "
                   "one process")
+        probe = res[name]["batch_invariant"]
+        for call in ("chain_sum", "chain_matvec"):
+            check(probe[call], f"config5.mesh_exec {name}: K3/K4 {call} "
+                  "gives a block alone other bits than in the batch")
+        # with every call of the sweep batch-invariant, the ranks must be
+        # bit-equal to one process on every saved array (F6)
+        if all(probe[c] for c in SWEEP_CALLS):
+            for k, eq in res[name]["bit_equal_one_process"].items():
+                check(eq, f"config5.mesh_exec {name}: every call of the "
+                      f"sweep is batch-invariant, but the ranks' {k} "
+                      "differs from one process")
     check(launches["rotation_s_parts"] > 0,
           "config5.mesh_exec: K1 was not launched")
     return launches
@@ -2889,6 +3089,80 @@ def debug_transport_phase(dev, power: str) -> None:
           "analytic Drude weight")
 
 
+# --- the headline benchmark ---------------------------------------------------
+
+#: ``drivers/bench`` at its full widths (16×16 at 8 chains, 64 × 24×24,
+#: 40 × 32×32), its depth cut from the JAX script's 10 therm sweeps and 3
+#: reps of 20-sweep segments to 2 and 1 of 2, and each shape leg's from 6
+#: (capacity 2) therm sweeps and 2 (1) reps of 10-sweep (4-sweep) segments
+#: to 2 and 1 of 2
+BENCH_CUT = {"BENCH_THERM": "2", "BENCH_SWEEPS": "2", "BENCH_REPS": "1"}
+BENCH_LEG_CUT = dict(n_therm_p=2, n_sweeps=2, reps_p=1)
+
+
+def bench_rotations(kn: dict, legs: tuple) -> int:
+    """K1 launches of ``drivers/bench.bench`` at knobs ``kn`` and shape legs
+    ``legs`` (their ``shape_leg`` keyword arguments): the therm's and every
+    tracked segment's rotations; the exact mode, the inits and the eigh
+    figures launch none."""
+    tr, K = kn["tracked_iters"], kn["anchor_every"]
+    fast = dict(tracked=tr, refine=kn["refine_iters"],
+                polish=kn["polish_iters"])
+    total = expected_rotations(kn["therm"], 1, kn["nt_therm"], 6)
+    segs = 1 + kn["reps"]
+    for mode in kn["modes"]:
+        if mode == "tracked":
+            total += segs * expected_rotations(kn["sweeps"], 1, kn["Nt"], tr)
+        elif mode == "tracked_fast":
+            total += segs * expected_rotations(kn["sweeps"], K, kn["Nt"],
+                                               **fast)
+    for leg in legs:
+        nt_th = leg.get("nt_therm") or kn["nt_therm"]
+        total += expected_rotations(leg["n_therm_p"], 1, nt_th, tr)
+        total += (1 + leg["reps_p"]) * expected_rotations(
+            leg["n_sweeps"], K, leg["Ntp"], **fast)
+    return total
+
+
+def bench_phase(dev, power: str) -> dict:
+    """``drivers/bench.bench`` (``BENCH_CUT``, ``BENCH_LEG_CUT``): the
+    16×16 headline with its three modes and the eigh figures, the
+    production leg (64 × 24×24) and the capacity leg (40 × 32×32).  Every
+    mode and leg finite traj/s and an acceptance in [0, 1], no error, K1 on
+    the schedule, no K2; the PH guard's fallbacks and rescues reported."""
+    from dwavehmc_tpu_torch.drivers import bench as tb
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    kn = tb.knobs(BENCH_CUT)
+    legs = (dict(tb.PRODUCTION, **BENCH_LEG_CUT),
+            dict(tb.CAPACITY, **BENCH_LEG_CUT))
+    ph_eigh.reset_guard()
+    (line, errors), launches, sec = _counted(
+        lambda: tb.bench(kn, dev, *legs))
+    k1_want = bench_rotations(kn, legs)
+    emit({"phase": "bench", "line": line, "seconds": sec,
+          "cut": {"knobs": BENCH_CUT, "legs": BENCH_LEG_CUT},
+          "launches": launches, "k1_schedule": k1_want,
+          "guard": dict(ph_eigh.GUARD), "gpu": power})
+    check(not errors, f"bench: {errors}")
+    rows = dict(line["modes"])
+    rows.update((k, line[k]) for k in ("production_24x24_b64",
+                                       "capacity_32x32_b40"))
+    check(set(rows) == {"exact", "tracked", "tracked_fast",
+                        "production_24x24_b64", "capacity_32x32_b40"},
+          f"bench: modes and legs {sorted(rows)}")
+    for name, r in rows.items():
+        check(np.isfinite(r["traj_per_sec"]) and r["traj_per_sec"] > 0
+              and 0.0 <= r["acceptance"] <= 1.0,
+              f"bench {name}: traj/s {r['traj_per_sec']}, acceptance "
+              f"{r['acceptance']}")
+    check(launches["rotation_s_parts"] == k1_want,
+          f"bench: {launches['rotation_s_parts']} K1 launches, the schedule "
+          f"gives {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 0, "bench launched K2")
+    return launches
+
+
 def tools_phases(dev, power: str) -> dict:
     """The measurement and audit tools; their kernel launches summed."""
     total = {}
@@ -2927,6 +3201,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     table = kernel_phases(dev, gen, power)
+    table.update(chain_kernel_phases(dev, power))
     anchor_phases(dev, gen, power)
     ph_draws_phase(dev, power)
     for solver in ("qdwh", "ph"):
@@ -2984,6 +3259,8 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in tools_phases(dev, power).items():
         launches[name] += n
+    for name, n in bench_phase(dev, power).items():
+        launches[name] += n
     postprocess_cli_phase(power)
     quickcheck_phase(power)
     profile_phase(dev, args.seed, power)
@@ -2999,6 +3276,16 @@ def main(argv=None) -> int:
              replaces="dwavehmc_tpu/ops/pallas_kernels.py:86",
              launches=launches["weighted_lorentzian_sum"], library_ms=None,
              **table["weighted_lorentzian_sum"]),
+        # K3 and K4 replace no TPU kernel: they fix the order of XLA's
+        # per-chain reductions at these lines of the JAX package
+        dict(name="chain_sum", route="cuda",
+             source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
+             replaces="dwavehmc_tpu/sampler/hmc_real.py:94",
+             launches=launches["chain_sum"], **table["chain_sum"]),
+        dict(name="chain_matvec", route="cuda",
+             source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
+             replaces="dwavehmc_tpu/ops/tracked_eigh.py:57",
+             launches=launches["chain_matvec"], **table["chain_matvec"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(power, flush=True)

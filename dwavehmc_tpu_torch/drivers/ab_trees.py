@@ -1,0 +1,115 @@
+"""Time one measurement in two checkouts of this repository on the same
+card, in the order A, B, B, A, each run a process of its own started from
+its checkout's root.
+
+    python -m dwavehmc_tpu_torch.drivers.ab_trees --base DIR
+        [--what ph_anchor,production] [--out runs/ab_trees.json]
+
+A is this checkout, B the one at ``--base`` (for example the parent commit
+unpacked with ``git archive``).  Measurements:
+
+- ``ph_anchor``: the guarded PH anchor (``ops/ph_eigh.
+  diagonalize_embedding_ph_guarded``) at 8 × 2304 on ``chip_smoke.py``'s
+  seeded ``anchor.ph_draws`` batches (seeds 1001…1008): per batch whether
+  it fell back, the chains it rescued (0 where the checkout has no
+  rescue) and the median device ms of 3 calls after a warm-up;
+- ``production``: ``drivers/profile_production`` at the cut
+  ``chip_smoke.py`` runs (64 × 24×24, 1 therm sweep, 2-sweep segments):
+  the timed plain segment's traj/s.
+
+Each run's JSON is kept whole; the summary gives each measurement per
+checkout in run order.  Any run that fails makes the command exit
+nonzero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+#: the PH anchor on chip_smoke's seeded batches, run inside a checkout
+PH_ANCHOR = r"""
+import json, numpy as np, torch
+import chip_smoke as cs
+from dwavehmc_tpu_torch.ops import ph_eigh
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+rows = []
+for i in range(cs.PH_DRAW_BATCHES):
+    g = torch.Generator(device=dev).manual_seed(1001 + i)
+    M = cs._anchor_batch(dev, g)
+    ph_eigh.reset_guard()
+    fb = ph_eigh.diagonalize_embedding_ph_guarded(M)[3]
+    guard = dict(ph_eigh.GUARD)
+    ms = cs.event_ms(lambda: ph_eigh.diagonalize_embedding_ph_guarded(M))
+    rows.append({"seed": 1001 + i, "fell_back": fb,
+                 "rescued": guard.get("rescued", 0), "ms": ms,
+                 "ms_median": float(np.median(ms))})
+    del M
+print(json.dumps({"ph_anchor": rows}))
+"""
+
+#: profile_production's environment at chip_smoke's cut
+PRODUCTION_ENV = {"PROF_THERM": "1", "PROF_SWEEPS": "2"}
+
+
+def _run(tree: str, what: str, out_dir: str, tag: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=tree, SKIP_QUICK_TESTS="1")
+    if what == "ph_anchor":
+        cmd = [sys.executable, "-c", PH_ANCHOR]
+    else:
+        env.update(PRODUCTION_ENV)
+        cmd = [sys.executable, "-m",
+               "dwavehmc_tpu_torch.drivers.profile_production",
+               "--device", "cuda", "--out",
+               os.path.join(out_dir, f"profile_{tag}.json")]
+    p = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
+                       text=True, timeout=1800)
+    if p.returncode != 0:
+        raise RuntimeError(f"{what} in {tree} exited {p.returncode}:\n"
+                           f"{p.stderr[-3000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def ab(base: str, whats: list, out_dir: str) -> dict:
+    trees = {"A": REPO, "B": os.path.abspath(base)}
+    out = {"trees": trees, "order": "ABBA", "runs": [], "summary": {}}
+    for what in whats:
+        for i, side in enumerate("ABBA"):
+            res = _run(trees[side], what, out_dir, f"{side}{i}")
+            out["runs"].append({"what": what, "side": side, "result": res})
+            if what == "ph_anchor":
+                val = [(r["seed"], r["fell_back"], r["rescued"],
+                        r["ms_median"]) for r in res["ph_anchor"]]
+            else:
+                val = res["traj_per_sec"]
+            out["summary"].setdefault(what, {}).setdefault(side, []).append(
+                val)
+            print(f"[ab_trees] {what} {side}: {val}", file=sys.stderr,
+                  flush=True)
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--base", required=True)
+    p.add_argument("--what", default="ph_anchor,production")
+    p.add_argument("--out", default=os.path.join("runs", "ab_trees.json"))
+    ns = p.parse_args(argv)
+    out_dir = os.path.dirname(os.path.abspath(ns.out))
+    os.makedirs(out_dir, exist_ok=True)
+    out = ab(ns.base, ns.what.split(","), out_dir)
+    with open(ns.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out["summary"]))
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

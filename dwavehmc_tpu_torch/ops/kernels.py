@@ -1,4 +1,4 @@
-"""The port's two hand-written Hopper kernels, their bindings and their plain
+"""The port's hand-written Hopper kernels, their bindings and their plain
 PyTorch versions.
 
 =====  ==========================  ==========================================
@@ -8,7 +8,19 @@ K1     ``rotation_s_parts``        ``csrc/rotation_s.cu``; replaces
 K2     ``weighted_lorentzian_sum`` ``csrc/lorentzian.cu``; replaces
                                    ``dwavehmc_tpu/ops/pallas_kernels.py::
                                    weighted_lorentzian_sum``
+K3     ``chain_sum``               ``csrc/chain_sum.cu``; the per-chain sums
+                                   of the HMC energies in a fixed order (no
+                                   TPU kernel: XLA's ``jnp.sum``)
+K4     ``chain_matvec``            ``csrc/chain_sum.cu``; the σ-cap's complex
+                                   matrix-vector product in a fixed order (no
+                                   TPU kernel: XLA's ``matmul``)
 =====  ==========================  ==========================================
+
+K3 and K4 exist so that a chain's sweep gives the same bits whatever batch
+it runs in (ROADMAP fault F6): PyTorch's CUDA reduction and cuBLAS's
+batched matrix-vector product pick their order of addition by the batch's
+size.  Both add in one halving tree (``csrc/chain_sum.cu``), and their plain
+versions run the same tree, so kernel and plain version agree to the bit.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into one
 shared library under ``build/kernels/`` beside the package (one ``nvcc -c``
@@ -41,12 +53,13 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rotation_s.cu", "lorentzian.cu")
+SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
-LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0}
+LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0,
+            "chain_sum": 0, "chain_matvec": 0}
 
 _lib = None
 
@@ -132,6 +145,12 @@ def _load(path: Path):
     lib.dwh_weighted_lorentzian_sum.argtypes = [p, p, p, p, p, i, i, i, i,
                                                 i, i, i, i, i, f, p]
     lib.dwh_weighted_lorentzian_sum.restype = i
+    for name in ("dwh_chain_sum_f32", "dwh_chain_sum_f64"):
+        getattr(lib, name).argtypes = [p, p, i, i, p]
+        getattr(lib, name).restype = i
+    for name in ("dwh_chain_matvec_f32", "dwh_chain_matvec_f64"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, p]
+        getattr(lib, name).restype = i
     return lib
 
 
@@ -141,12 +160,13 @@ def _library():
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype = torch.float32):
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device} (CUDA), "
                          f"got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
@@ -326,3 +346,110 @@ def weighted_lorentzian_sum(omega, de, w2, eta: float):
         return weighted_lorentzian_sum_plain(omega, de, w2, eta)
     f32 = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
     return weighted_lorentzian_sum_cuda(f32(omega), f32(de), f32(w2), eta)
+
+
+# --- K3, K4: per-chain sums in a fixed order --------------------------------
+
+#: the longest row K3 adds, and the longest K4 multiplies (its four trees
+#: of 16 values a thread must fit a block's registers in float64)
+CHAIN_SUM_MAX = 16384
+CHAIN_MATVEC_MAX = 4096
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def tree_length(m: int) -> int:
+    """The halving tree's padded length: the least power of two ≥ max(m,
+    256) (``csrc/chain_sum.cu``)."""
+    p = 256
+    while p < m:
+        p *= 2
+    return p
+
+
+def chain_sum_plain(x):
+    """Plain PyTorch K3: Σ over the last axis of x (…, m), any leading shape
+    and float dtype, in the kernel's order: zero-padded to
+    ``tree_length(m)``, then x[i] + x[i + h] for h = P/2, …, 1."""
+    m = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, tree_length(m) - m))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    """The C entry's dtype suffix; K3 and K4 take float32 and float64."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"expected float32 or float64, got {dtype}")
+    return _SUFFIX[dtype]
+
+
+def chain_sum_cuda(x):
+    """Launch K3 on a contiguous float32 or float64 CUDA tensor x (…, m)."""
+    m = x.shape[-1]
+    if m > CHAIN_SUM_MAX:
+        raise ValueError(f"chain_sum: rows of {m} > {CHAIN_SUM_MAX}")
+    suffix = _suffix(x.dtype)
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    _check("x", x, x.shape, x.device, x.dtype)
+    out = torch.empty(lead, dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return out
+    err = getattr(_library(), f"dwh_chain_sum_{suffix}")(
+        x.data_ptr(), out.data_ptr(), rows, m, _stream(x.device))
+    _raise_on(err, "chain_sum")
+    LAUNCHES["chain_sum"] += 1
+    return out
+
+
+def chain_sum(x):
+    """K3 dispatch: Σ over the last axis, in one order whatever the batch.
+    CPU tensors → plain version; CUDA tensors → the kernel, in their dtype
+    (float32 or float64; any other raises)."""
+    if x.device.type == "cpu":
+        return chain_sum_plain(x)
+    return chain_sum_cuda(x.contiguous())
+
+
+def chain_matvec_plain(ar, ai, vr, vi):
+    """Plain PyTorch K4: w = (ar + i·ai)(vr + i·vi) for ar/ai (B, n, n) and
+    vr/vi (B, n), each of ar·vr, ai·vi, ar·vi, ai·vr its own halving tree:
+    (ar·vr − ai·vi, ar·vi + ai·vr), each (B, n)."""
+    r, i = vr[:, None, :], vi[:, None, :]
+    return (chain_sum_plain(ar * r) - chain_sum_plain(ai * i),
+            chain_sum_plain(ar * i) + chain_sum_plain(ai * r))
+
+
+def chain_matvec_cuda(ar, ai, vr, vi):
+    """Launch K4 on float32 or float64 CUDA tensors ar/ai (B, n, n), vr/vi
+    (B, n)."""
+    B, n = vr.shape
+    dev, dt = vr.device, vr.dtype
+    if n > CHAIN_MATVEC_MAX:
+        raise ValueError(f"chain_matvec: n = {n} > {CHAIN_MATVEC_MAX}")
+    suffix = _suffix(dt)
+    for name, t, shape in (("ar", ar, (B, n, n)), ("ai", ai, (B, n, n)),
+                           ("vr", vr, (B, n)), ("vi", vi, (B, n))):
+        _check(name, t, shape, dev, dt)
+    wr = torch.empty_like(vr)
+    wi = torch.empty_like(vi)
+    if B == 0 or n == 0:
+        return wr, wi
+    err = getattr(_library(), f"dwh_chain_matvec_{suffix}")(
+        ar.data_ptr(), ai.data_ptr(), vr.data_ptr(), vi.data_ptr(),
+        wr.data_ptr(), wi.data_ptr(), B, n, _stream(dev))
+    _raise_on(err, "chain_matvec")
+    LAUNCHES["chain_matvec"] += 1
+    return wr, wi
+
+
+def chain_matvec(ar, ai, vr, vi):
+    """K4 dispatch: the complex product (ar + i·ai)(vr + i·vi) per chain, in
+    one order whatever the batch.  CPU tensors → plain version; CUDA
+    tensors → the kernel in their dtype (float32 or float64)."""
+    if vr.device.type == "cpu":
+        return chain_matvec_plain(ar, ai, vr, vi)
+    c = lambda x: x.contiguous()  # noqa: E731
+    return chain_matvec_cuda(c(ar), c(ai), c(vr), c(vi))

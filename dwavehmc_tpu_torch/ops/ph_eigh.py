@@ -36,6 +36,17 @@ That fallback is the JAX package's own semantics (its batch-level
 ``lax.cond``); it is counted in ``GUARD``.  Under a process group the batch
 is the ensemble of every rank, so the ``bool`` is an all-reduce over ranks
 (``parallel/mesh.any_across_ranks``).
+
+Before that decision the guard rescues each chain whose float32 CholeskyQR³
+broke down (a non-finite positive basis), which the JAX package sends to
+the fallback with its whole batch.  The sketch Y = P₊G has a square
+Gaussian core, whose κ has a heavy tail; at κ(Y) ≳ 1e5 float32 loses the
+weak directions of span(Y), and the factorization fails.  Only those chains
+are redone, in float64 (``_ritz_float64``: the float32 sign matrix refined
+by Newton–Schulz steps, the sketch, CholeskyQR³ and the Rayleigh–Ritz
+step), and counted in ``GUARD["rescued"]``.  A chain that does not break
+down takes exactly the JAX algorithm's operations; the rescue's syncs run
+only when a chain broke down.
 """
 
 from __future__ import annotations
@@ -52,9 +63,14 @@ from ..utils.precision import matmul_precision, product
 #: since the last ``reset_guard()``: guarded solves, their fallbacks, and
 #: over the fallbacks this process's voting chains that failed the guard —
 #: by an unconverged sign iteration, by a Ritz value under the floor, by a
-#: non-finite one
+#: non-finite one; and, over all solves, this process's voting chains whose
+#: float32 CholeskyQR³ broke down and were redone in float64 (``rescued``)
 GUARD = {"solves": 0, "fallbacks": 0, "resid_failed": 0, "ratio_failed": 0,
-         "nonfinite": 0}
+         "nonfinite": 0, "rescued": 0}
+
+#: Newton–Schulz steps that refine a float32 sign matrix in float64 before a
+#: rescued chain's sketch (the error squares each step: 1e-6 → 1e-12)
+RESCUE_NS_STEPS = 2
 
 #: quintic lift coefficients p(x) = a·x + b·x³ + c·x⁵: multiplies small
 #: singular values by ~3.44 per application while keeping p([0, 1.02])
@@ -237,12 +253,17 @@ def orth_ns(Y: torch.Tensor, n_lift: int = 8, n_ns: int = 4) -> torch.Tensor:
     return X
 
 
+def _sketched(M: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """Y = P₊G = (sgn·G + G)/2 for the fixed sketch G (…, 4N, 2N)."""
+    G = _sketch(M.shape[-1], M.dtype, M.device)
+    return 0.5 * (sgn @ G + G)
+
+
 def positive_basis(M: torch.Tensor, sgn: torch.Tensor,
                    orth: str = "chol") -> torch.Tensor:
     """Orthonormal basis (…, 4N, 2N) of the positive-energy subspace from
     the (approximate) sign matrix."""
-    G = _sketch(M.shape[-1], M.dtype, M.device)
-    Y = 0.5 * (sgn @ G + G)
+    Y = _sketched(M, sgn)
     return cholqr2(Y) if orth == "chol" else orth_ns(Y)
 
 
@@ -258,6 +279,19 @@ def _ritz(M: torch.Tensor, Q: torch.Tensor):
     T = _finite_or_zero(0.5 * (T + T.mT))
     wt, Vt = symmetric_eigh(T)
     return wt, Q @ Vt
+
+
+def _ritz_float64(M: torch.Tensor, sgn: torch.Tensor):
+    """``_ritz`` on the positive basis, recomputed in float64 from the
+    sign matrix ``sgn`` refined by ``RESCUE_NS_STEPS`` Newton–Schulz
+    steps, cast back to M's dtype: the rescue of chains whose float32
+    CholeskyQR³ broke down."""
+    s = sgn.double()
+    for _ in range(RESCUE_NS_STEPS):
+        s = 1.5 * s - 0.5 * ((s @ s) @ s)
+    M64 = M.double()
+    wt, Vp = _ritz(M64, cholqr2(_sketched(M64, s)))
+    return wt.to(M.dtype), Vp.to(M.dtype)
 
 
 def _split_levels(wt: torch.Tensor, Vp: torch.Tensor):
@@ -278,7 +312,9 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
                                      orth: str = "chol", vote=None):
     """PH-split diagonalization of a batch with a floor guard.
 
-    Falls back to ``diagonalize_embedding`` for the WHOLE batch when any
+    First redoes in float64 (``_ritz_float64``) each voting chain whose
+    positive basis came out non-finite (a CholeskyQR³ breakdown).  Then
+    falls back to ``diagonalize_embedding`` for the WHOLE batch when any
     matrix (a) left the sign iteration unconverged (‖sgn²−I‖max >
     PH_GUARD_RESID: a spectrum below the schedule's floor) or (b) has its
     smallest Ritz value under PH_GUARD_RATIO·‖M‖∞, or (c) gave a non-finite
@@ -295,16 +331,34 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
     Mg = _finite_or_zero(M)
     sgn, resid = sign_embedding(Mg, lift_precision=lift_precision,
                                 floor=floor, return_resid=True)
-    wt, Vp = _ritz(Mg, positive_basis(Mg, sgn, orth=orth))
+    Q = positive_basis(Mg, sgn, orth=orth)
+    broken = ~torch.isfinite(Q).flatten(-2).all(-1)
+    wt, Vp = _ritz(Mg, Q)
+    del Q
     lam = Mg.abs().sum(-1).amax(-1)
-    min_ratio = wt.abs().amin(-1) / torch.clamp(lam, min=1e-30)
-    fails = torch.stack([~(resid < PH_GUARD_RESID),
+    votes = None if vote is None else torch.as_tensor(vote,
+                                                      device=wt.device)
+
+    def guard_fails():
+        min_ratio = wt.abs().amin(-1) / torch.clamp(lam, min=1e-30)
+        f = torch.stack([~(resid < PH_GUARD_RESID),
                          ~(min_ratio > PH_GUARD_RATIO),
                          ~torch.isfinite(wt).all(-1)])
-    if vote is not None:
-        fails = fails & torch.as_tensor(vote, device=fails.device)
+        return f if votes is None else f & votes
+
+    fails = guard_fails()
+    if votes is not None:
+        broken = broken & votes
     GUARD["solves"] += 1
-    if not any_across_ranks(bool(fails.any())):
+    # a healthy solve's one host read: any failure, any breakdown
+    failing, rescue = torch.stack([fails.any(), broken.any()]).tolist()
+    if rescue:
+        k = torch.nonzero(broken)[:, 0]
+        wt[k], Vp[k] = _ritz_float64(Mg[k], sgn[k])
+        GUARD["rescued"] += len(k)
+        fails = guard_fails()
+        failing = bool(fails.any())
+    if not any_across_ranks(failing):
         return (*_split_levels(wt, Vp), False)
     GUARD["fallbacks"] += 1
     for name, n in zip(("resid_failed", "ratio_failed", "nonfinite"),

@@ -9,7 +9,10 @@ JAX package's draws.
 
 Leapfrog conventions: π refresh Re π, Im π ~ N(0, m); Δ += dt·π/(2m);
 kicks half, (Nt−1) full, half.  Accept: ΔH < 0 or u < exp(−ΔH) compared in
-float32; a non-finite proposal is rejected and zeroed.
+float32; a non-finite proposal is rejected and zeroed.  The energies' sums
+over the fields and the levels go through K3 (``ops/kernels.chain_sum``),
+whose order does not depend on the batch: a chain gets the same ΔH alone
+as inside any batch.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..models.params import (
     sample_disorder,
 )
 from ..ops.forces_real import hmc_forces_real
+from ..ops.kernels import chain_sum
 from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
 from ..ops.tracked_eigh import tracked_eigh_nofallback
@@ -154,14 +158,19 @@ def init_chain_state_real(lat: LatticeSpec, params: ModelParams,
                         evals, X, Y)
 
 
+def _chain_sum(x):
+    """Σ over every axis but the chain axis, in one order whatever the
+    batch (K3, ``ops/kernels.chain_sum``)."""
+    return chain_sum(x.reshape(x.shape[0], -1))
+
+
 def _energy_terms(delta_re, delta_im, pi_re, pi_im, evals, beta, J, mass):
     """Per-chain H_HMC, fermion term in the PH-even all-levels/2 form
     (valid for an unsorted spectrum)."""
-    kin = torch.sum(pi_re**2 + pi_im**2, dim=(-2, -1)) / (2.0 * mass)
-    bos = (beta / (2.0 * J)) * torch.sum(delta_re**2 + delta_im**2,
-                                         dim=(-2, -1))
+    kin = _chain_sum(pi_re**2 + pi_im**2) / (2.0 * mass)
+    bos = (beta / (2.0 * J)) * _chain_sum(delta_re**2 + delta_im**2)
     x = chain_view(beta, 2) * torch.abs(evals)
-    fer = -0.5 * torch.sum(x + 2.0 * softplus(-x), dim=-1)
+    fer = -0.5 * _chain_sum(x + 2.0 * softplus(-x))
     return kin + bos + fer
 
 
@@ -273,17 +282,17 @@ def _metropolis(params, state, proposal, evals_n, finite, dH_host=None):
     p = proposal
     H_old = _energy_terms(state.delta_re, state.delta_im, p.pi_re0, p.pi_im0,
                           state.evals, beta, J, mass)
-    d_kin = torch.sum(p.pi_re**2 + p.pi_im**2 - p.pi_re0**2 - p.pi_im0**2,
-                      dim=(-2, -1)) / (2.0 * mass)
-    d_bos = (beta / (2.0 * J)) * torch.sum(
+    d_kin = _chain_sum(p.pi_re**2 + p.pi_im**2 - p.pi_re0**2
+                       - p.pi_im0**2) / (2.0 * mass)
+    d_bos = (beta / (2.0 * J)) * _chain_sum(
         p.delta_re**2 + p.delta_im**2 - state.delta_re**2
-        - state.delta_im**2, dim=(-2, -1))
+        - state.delta_im**2)
     b2 = chain_view(beta, 2)
     En = torch.abs(evals_n)
     Eo = torch.abs(state.evals)
-    d_fer = -0.5 * (beta * (torch.sum(En, -1) - torch.sum(Eo, -1))
-                    + 2.0 * (torch.sum(softplus(-b2 * En), -1)
-                             - torch.sum(softplus(-b2 * Eo), -1)))
+    d_fer = -0.5 * (beta * (_chain_sum(En) - _chain_sum(Eo))
+                    + 2.0 * (_chain_sum(softplus(-b2 * En))
+                             - _chain_sum(softplus(-b2 * Eo))))
     dH = d_kin + d_bos + d_fer
     if dH_host is not None:
         dH = torch.as_tensor(dH_host, device=dH.device).to(torch.float32)
@@ -436,17 +445,15 @@ def hmc_sweep_real(lat: LatticeSpec, params: ModelParams,
         evals_n, X_n, Y_n = diagonalize_embedding(
             assemble_embedding(lat, M_static, dre, dim_))
 
-    d_kin = torch.sum(pre**2 + pim**2 - pi_re0**2 - pi_im0**2,
-                      dim=(-2, -1)) / (2.0 * mass)
-    d_bos = (beta / (2.0 * J)) * torch.sum(
-        dre**2 + dim_**2 - state.delta_re**2 - state.delta_im**2,
-        dim=(-2, -1))
+    d_kin = _chain_sum(pre**2 + pim**2 - pi_re0**2 - pi_im0**2) / (2.0 * mass)
+    d_bos = (beta / (2.0 * J)) * _chain_sum(
+        dre**2 + dim_**2 - state.delta_re**2 - state.delta_im**2)
     half = evals_n.shape[-1] // 2
     b2 = chain_view(beta, 2)
     En = torch.abs(evals_n[..., half:])
     Eo = torch.abs(state.evals[..., half:])
-    d_fer = -(beta * torch.sum(En - Eo, -1)
-              + 2.0 * torch.sum(softplus(-b2 * En) - softplus(-b2 * Eo), -1))
+    d_fer = -(beta * _chain_sum(En - Eo)
+              + 2.0 * _chain_sum(softplus(-b2 * En) - softplus(-b2 * Eo)))
     dH = d_kin + d_bos + d_fer
     accept = (dH < 0) | (u < torch.exp(-dH.to(torch.float32)))
     new_state = HMCStateReal(

@@ -556,3 +556,106 @@ def test_bench_forces_formulations_agree_on_the_card(cuda):
                        device=cuda)
     diff, tol = bf.equivalence(lat, st.evals, st.evecs, params.beta)
     assert tol == 1e-4 and diff < tol, diff
+
+
+def _randn(shape, dtype, cuda, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(
+        cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,m", [(1, 1), (3, 7), (8, 1152), (5, 2048),
+                                    (1152, 300), (2, 16384)])
+def test_chain_sum_kernel_is_bit_equal_to_plain(cuda, dtype, rows, m):
+    x = _randn((rows, m), dtype, cuda, m)
+    before = kernels.LAUNCHES["chain_sum"]
+    got = kernels.chain_sum(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chain_sum"] == before + 1
+    assert got.dtype == dtype and got.shape == (rows,)
+    assert torch.equal(got, kernels.chain_sum_plain(x))
+    k = max(1, rows // 2)
+    assert torch.equal(kernels.chain_sum(x[:k]), got[:k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 5), (8, 1152), (2, 2048),
+                                 (1, 4096)])
+def test_chain_matvec_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
+    args = tuple(_randn(s, dtype, cuda, i) for i, s in enumerate(
+        ((B, n, n), (B, n, n), (B, n), (B, n))))
+    before = kernels.LAUNCHES["chain_matvec"]
+    wr, wi = kernels.chain_matvec(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chain_matvec"] == before + 1
+    pr, pi = kernels.chain_matvec_plain(*args)
+    assert torch.equal(wr, pr) and torch.equal(wi, pi)
+    k = max(1, B // 2)
+    ar, ai = kernels.chain_matvec(*(x[:k] for x in args))
+    assert torch.equal(ar, wr[:k]) and torch.equal(ai, wi[:k])
+
+
+def test_chain_launchers_check_their_inputs(cuda):
+    x = _randn((2, 8), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):
+        kernels.chain_sum_cuda(x.half())
+    with pytest.raises(ValueError):
+        kernels.chain_sum_cuda(x.cpu())
+    with pytest.raises(ValueError):
+        kernels.chain_sum_cuda(torch.zeros(1, 16385, device=cuda))
+    a = _randn((1, 4097, 4097), torch.float32, cuda, 1)
+    v = torch.zeros(1, 4097, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.chain_matvec_cuda(a, a, v, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_sweep_reductions_are_batch_invariant_on_the_card(cuda, dtype):
+    """The σ-cap's estimate and the HMC energies give 2 chains alone the
+    bits they get in a batch of 8 (ROADMAP fault F6)."""
+    from dwavehmc_tpu_torch.ops.tracked_eigh import _spectral_norm_est
+    from dwavehmc_tpu_torch.sampler.hmc_real import _energy_terms
+
+    a, b = _randn((8, 300, 300), dtype, cuda, 2), _randn((8, 300, 300),
+                                                         dtype, cuda, 3)
+    sr, si = (a - a.mT) * 0.1, (b + b.mT) * 0.1
+    assert torch.equal(_spectral_norm_est(sr[:2], si[:2]),
+                       _spectral_norm_est(sr, si)[:2])
+    f = [_randn((8, 144, 2), dtype, cuda, s) for s in range(4, 8)]
+    e = _randn((8, 288), dtype, cuda, 8)
+    beta = torch.linspace(1.0, 20.0, 8, dtype=dtype, device=cuda)
+    one = torch.tensor(1.0, dtype=dtype, device=cuda)
+    whole = _energy_terms(*f, e, beta, one, one)
+    alone = _energy_terms(*(x[:2] for x in f), e[:2], beta[:2], one, one)
+    assert torch.equal(whole[:2], alone)
+
+
+def test_guarded_ph_anchor_rescues_a_broken_chain_on_the_card(cuda,
+                                                              monkeypatch):
+    """A chain whose float32 CholeskyQR³ breaks down (made NaN, as it comes
+    out on the card) is redone in float64; the batch does not fall back,
+    the other chains keep the unrescued solve's bits, and the rescued
+    chain's levels are as good as theirs (F5)."""
+    from dwavehmc_tpu_torch.ops import ph_eigh
+
+    M = torch.cat([_ph_embedding(12, s) for s in range(3)]).float().to(cuda)
+    w_ref, X_ref, _ = ph_eigh.diagonalize_embedding_ph(M)
+    real = ph_eigh.cholqr2
+
+    def failing(Y, shift_first=True):
+        Q = real(Y, shift_first)
+        if Y.dtype == torch.float32 and Y.shape[0] == 3:
+            Q = Q.clone()
+            Q[1] = float("nan")
+        return Q
+
+    monkeypatch.setattr(ph_eigh, "cholqr2", failing)
+    ph_eigh.reset_guard()
+    w, X, _, fb = ph_eigh.diagonalize_embedding_ph_guarded(M)
+    assert fb is False and ph_eigh.GUARD["rescued"] == 1
+    assert torch.equal(w[[0, 2]], w_ref[[0, 2]])
+    assert torch.equal(X[[0, 2]], X_ref[[0, 2]])
+    w64 = torch.linalg.eigvalsh(M.double())[..., ::2]
+    err = (w.double() - w64).abs().amax(-1)
+    assert float(err[1]) <= float(err[[0, 2]].max())

@@ -99,8 +99,11 @@ def test_cpu_dispatch_never_counts_a_launch():
     kernels.rotation_s_parts(tr, ti, d, 0.1)
     omega, de, w2 = (torch.as_tensor(x) for x in _lor_inputs(3, 10, 1))
     kernels.weighted_lorentzian_sum(omega, de, w2, 0.1)
+    kernels.chain_sum(tr)
+    kernels.chain_matvec(tr, ti, d, d)
     assert kernels.LAUNCHES == {"rotation_s_parts": 0,
-                                "weighted_lorentzian_sum": 0}
+                                "weighted_lorentzian_sum": 0,
+                                "chain_sum": 0, "chain_matvec": 0}
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -110,6 +113,10 @@ def test_launchers_refuse_cpu_tensors():
     omega, de, w2 = (torch.as_tensor(x) for x in _lor_inputs(3, 10, 1))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.weighted_lorentzian_sum_cuda(omega, de, w2, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.chain_sum_cuda(d)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.chain_matvec_cuda(tr, ti, d, d)
 
 
 def test_build_names_its_files_per_process(tmp_path, monkeypatch):
