@@ -18,10 +18,12 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    1e-5);
    then builds K3 ``chain_sum`` and K4 ``chain_matvec`` (the sweep's
    per-chain sums in one halving tree) and holds each against its plain
-   version at the main path's shapes and others, float32 and float64: they
-   must be bit-equal, and a block of a batch alone must get the batch's
-   bits; times each beside its plain version and the one PyTorch call that
-   computes the same function;
+   version at the main path's shapes and others, float32 and float64, up to
+   rows past one block's registers (K3 to 40000 values, K4 to n = 8464):
+   they must be bit-equal, and a block of a batch alone must get the
+   batch's bits; times each beside its plain version and the one PyTorch
+   call that computes the same function; times K1 alone at the bench's
+   three shapes;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
    float64 ``eigh`` within 4× float32 ``eigh``'s error (or 1e-5·‖M‖∞),
@@ -150,7 +152,16 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    ``BENCH_LEG_CUT``): every mode and leg finite traj/s and an acceptance
    in [0, 1], no error, K1 on its schedule, no K2, the PH guard's
    fallbacks and rescues reported (``bench``);
-15. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+15. drives the tracked path past K4's one-block rows (``tracked.large_lattice``):
+   2 chains of 46×46 (2N = 4232) at the production couplings, the guarded
+   PH init, a 2-sweep segment with K = 2 (Nt = 2, exp2) and one transport
+   pass: every output finite, K1 on its schedule, K4 four times a
+   rotation, K2 twice, the allocator's peak and the seconds reported; then
+   the graft entry: ``graft_entry.entry()`` on the card, its sweep twice
+   (``graft.entry``), and ``dryrun_multichip(2)`` with both ranks on the
+   card under its own limit, each rank's launches in its report
+   (``graft.dryrun_multichip``);
+16. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -312,46 +323,64 @@ def expected_rotations(n_sweeps: int, K: int, nt: int = NT,
 
 # --- kernels ----------------------------------------------------------------
 
+#: K1 at ``drivers/bench.py``'s three shapes (16×16/b8, 24×24/b64,
+#: 32×32/b40), timed alone
+BENCH_K1_SHAPES = ((8, 512), (64, 1152), (40, 2048))
+
+
+def k1_case(dev, g, B: int, n: int, power: str, label: str) -> dict:
+    """K1 against its plain version at (B, n, n), both timed; inputs from
+    ``g``.  Returns the kernel-table fields."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    a = torch.randn(B, n, n, generator=g, device=dev)
+    b = torch.randn(B, n, n, generator=g, device=dev)
+    tr, ti = (a + a.mT) * 0.01, (b - b.mT) * 0.01
+    del a, b
+    d = torch.sort(torch.randn(B, n, generator=g, device=dev),
+                   dim=-1).values * 3.0
+    before = kernels.LAUNCHES["rotation_s_parts"]
+    sr, si = kernels.rotation_s_parts(tr, ti, d, 0.1)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["rotation_s_parts"] == before + 1,
+          "K1 wrapper did not count its launch")
+    pr, pi = kernels.rotation_s_parts_plain(tr, ti, d, 0.1)
+    err = max(float((sr - pr).abs().max()), float((si - pi).abs().max()))
+    del sr, si, pr, pi
+    ms = cuda_ms(lambda: kernels.rotation_s_parts(tr, ti, d, 0.1), 20,
+                 graph=True)
+    plain_ms = cuda_ms(
+        lambda: kernels.rotation_s_parts_plain(tr, ti, d, 0.1), 5)
+    bound_ms, bound_by = roofline(4 * (4 * B * n * n + B * n),
+                                  K1_OPS_PER_ELEMENT * B * n * n)
+    emit({"phase": "kernel.rotation_s_parts", "case": label,
+          "shape": [B, n, n], "max_abs_err": err, "tol": 1e-6, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "launches": kernels.LAUNCHES["rotation_s_parts"], "gpu": power})
+    check(err <= 1e-6, f"K1 at {(B, n)}: max abs err {err} > 1e-6")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def kernel_phases(dev, gen, power: str):
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
     from dwavehmc_tpu_torch.ops import kernels
 
     table = {}
     # config 5's inputs come from a generator of their own, so that every
-    # later phase draws what it drew before they were added
+    # later phase draws what it drew before they were added; so do the
+    # bench's shapes
     gen5 = torch.Generator(device=dev).manual_seed(C5_L)
-    for B, n, main, g in ((N_CHAINS, 2 * L_MAIN * L_MAIN, True, gen),
-                          (2, 300, False, gen),
-                          (2, 2 * C5_L * C5_L, False, gen5)):
-        a = torch.randn(B, n, n, generator=g, device=dev)
-        b = torch.randn(B, n, n, generator=g, device=dev)
-        tr, ti = (a + a.mT) * 0.01, (b - b.mT) * 0.01
-        d = torch.sort(torch.randn(B, n, generator=g, device=dev),
-                       dim=-1).values * 3.0
-        before = kernels.LAUNCHES["rotation_s_parts"]
-        sr, si = kernels.rotation_s_parts(tr, ti, d, 0.1)
-        torch.cuda.synchronize()
-        check(kernels.LAUNCHES["rotation_s_parts"] == before + 1,
-              "K1 wrapper did not count its launch")
-        pr, pi = kernels.rotation_s_parts_plain(tr, ti, d, 0.1)
-        err = max(float((sr - pr).abs().max()), float((si - pi).abs().max()))
-        ms = cuda_ms(lambda: kernels.rotation_s_parts(tr, ti, d, 0.1), 20,
-                     graph=True)
-        plain_ms = cuda_ms(
-            lambda: kernels.rotation_s_parts_plain(tr, ti, d, 0.1), 5)
-        bound_ms, bound_by = roofline(4 * (4 * B * n * n + B * n),
-                                      K1_OPS_PER_ELEMENT * B * n * n)
-        emit({"phase": "kernel.rotation_s_parts", "shape": [B, n, n],
-              "max_abs_err": err, "tol": 1e-6, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "launches": kernels.LAUNCHES["rotation_s_parts"],
-              "gpu": power})
-        check(err <= 1e-6, f"K1 at {(B, n)}: max abs err {err} > 1e-6")
-        if main:
-            table["rotation_s_parts"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
-        del a, b, tr, ti, sr, si, pr, pi
+    for B, n, label, g in ((N_CHAINS, 2 * L_MAIN * L_MAIN, "main", gen),
+                           (2, 300, "unaligned", gen),
+                           (2, 2 * C5_L * C5_L, "config5", gen5)):
+        row = k1_case(dev, g, B, n, power, label)
+        if label == "main":
+            table["rotation_s_parts"] = row
+    genb = torch.Generator(device=dev).manual_seed(16)
+    for B, n in BENCH_K1_SHAPES:
+        k1_case(dev, genb, B, n, power, "bench")
+        torch.cuda.empty_cache()
 
     lat = LatticeSpec(L_MAIN, L_MAIN)
     spec = production_spec(lat)
@@ -433,19 +462,28 @@ def kernel_phases(dev, gen, power: str):
 #: K3 and K4 (``csrc/chain_sum.cu``) at the main path's shapes first (the
 #: energies' and the σ-cap's sums over 2N = 1152 values of 8 chains, the
 #: σ-cap's (8, 1152, 1152) product), then unaligned, production-batch,
-#: config-5 float64 and longest-row cases: (name, rows or chains, length,
-#: dtype, is the main path's)
+#: config-5 float64 and the longest rows one block holds in registers, then
+#: rows past them, which fold their upper levels as they load (K3 past
+#: 16384: 2N = 16562 at 91×91; K4 past 4096: 2N = 4232 at 46×46, 8464 at
+#: 92×92): (name, rows or chains, length, dtype, is the main path's)
 CHAIN_CASES = (("chain_sum", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
                ("chain_sum", 3, 7, "float32", False),
                ("chain_sum", 64, 2 * L_MAIN * L_MAIN, "float32", False),
                ("chain_sum", N_CHAINS * 1152, 1152, "float32", False),
                ("chain_sum", 8, 2 * C5_L * C5_L, "float64", False),
                ("chain_sum", 2, 16384, "float64", False),
+               ("chain_sum", 2, 16385, "float32", False),
+               ("chain_sum", 3, 16562, "float64", False),
+               ("chain_sum", 2, 40000, "float32", False),
                ("chain_matvec", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32",
                 True),
                ("chain_matvec", 3, 5, "float32", False),
                ("chain_matvec", 8, 2 * C5_L * C5_L, "float64", False),
-               ("chain_matvec", 1, 4096, "float64", False))
+               ("chain_matvec", 1, 4096, "float64", False),
+               ("chain_matvec", 1, 4097, "float32", False),
+               ("chain_matvec", 2, 4232, "float32", False),
+               ("chain_matvec", 2, 4608, "float32", False),
+               ("chain_matvec", 1, 8464, "float64", False))
 
 
 def chain_kernel_phases(dev, power: str) -> dict:
@@ -453,8 +491,8 @@ def chain_kernel_phases(dev, power: str) -> dict:
     results must be bit-equal), each also on the first half of its batch
     alone (the same bits as inside the batch), timed beside the plain
     version and the one PyTorch call that computes the same function
-    (``torch.sum``; the complex ``matmul``).  Inputs from a generator of
-    their own."""
+    (``torch.sum``; the complex ``matmul``), at every shape.  Inputs from a
+    generator of their own."""
     from dwavehmc_tpu_torch.ops import kernels
 
     table = {}
@@ -490,26 +528,28 @@ def chain_kernel_phases(dev, power: str) -> dict:
         alone = alone if isinstance(alone, tuple) else (alone,)
         invariant = all(bool(torch.equal(a[:k], b))
                         for a, b in zip(got, alone))
-        row = {"phase": f"kernel.{name}", "shape": [B, m], "dtype": dtype,
-               "max_abs_err": err, "bit_equal_plain": bit_equal,
-               "block_alone_bit_equal": invariant,
-               "launches": kernels.LAUNCHES[name], "gpu": power}
+        ms = cuda_ms(lambda: kernel(*args), 20, graph=True)
+        plain_ms = cuda_ms(lambda: plain(*args), 5 if main else 2,
+                           warmup=2 if main else 1)
+        library_ms = cuda_ms(lambda: lib(*args), 20, graph=True)
+        bound_ms, bound_by = roofline(nbytes, ops)
+        emit({"phase": f"kernel.{name}", "shape": [B, m], "dtype": dtype,
+              "max_abs_err": err, "bit_equal_plain": bit_equal,
+              "block_alone_bit_equal": invariant, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "launches": kernels.LAUNCHES[name], "gpu": power})
         if main:
-            ms = cuda_ms(lambda: kernel(*args), 20, graph=True)
-            plain_ms = cuda_ms(lambda: plain(*args), 5)
-            library_ms = cuda_ms(lambda: lib(*args), 20, graph=True)
-            bound_ms, bound_by = roofline(nbytes, ops)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
             table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=library_ms)
-        emit(row)
         check(bit_equal, f"{name} at {(B, m)} {dtype}: differs from its "
               f"plain version by {err}")
         check(invariant, f"{name} at {(B, m)} {dtype}: a block alone gets "
               "other bits than inside the batch")
-        del args, got, want, alone
+        del args, got, want, alone, lib
+        if name == "chain_matvec":
+            del A, v
     return table
 
 
@@ -3177,6 +3217,143 @@ def tools_phases(dev, power: str) -> dict:
 
 
 
+#: the tracked path past K4's one-block tree (ROADMAP fault F7): 46×46, 2N =
+#: 4232, 2 chains at the production couplings at β = 10 (the bench's) and
+#: 20 (config 5's), Nt = 2, K = 2 (one cheap and one anchored sweep) with
+#: the PH anchor and exp2 rotations
+LARGE_L = 46
+LARGE = dict(chains=2, betas=(10.0, 20.0), Nt=2, sweeps=2, K=2)
+
+
+def large_lattice_phase(dev, power: str) -> dict:
+    """``init_ensemble_real`` (the guarded PH solve), a 2-sweep
+    ``run_segment_tracked`` and one ``ensemble_transport_real`` pass at
+    46×46 on the card, the counts reset before and read after: K1 on the
+    schedule, K2 twice, K3 and K4 launched; every dH, observable, state and
+    transport output finite; the allocator's peak and the seconds
+    printed."""
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.ops import ph_eigh
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        ensemble_transport_real,
+        init_ensemble_real,
+        run_segment_tracked,
+    )
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    lat = LatticeSpec(LARGE_L, LARGE_L)
+    spec = production_spec(lat)
+    betas = list(LARGE["betas"])
+    params = make_params(beta=betas, dtype=torch.float32, device=dev,
+                         **PHYS)
+    dt = torch.tensor([calc_optimal_dt(b, PHYS["J"], PHYS["mass"],
+                                       LARGE["Nt"]) for b in betas],
+                      device=dev)
+    track = dict(TRACK, exact_solver="ph")
+    gen = torch.Generator(device=dev).manual_seed(LARGE_L)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ph_eigh.reset_guard()
+
+    def run():
+        st = init_ensemble_real(lat, params, gen, LARGE["chains"],
+                                dtype=torch.float32, n_imp=PHYS["n_imp"],
+                                exact_solver="ph", device=dev)
+        st, seg = run_segment_tracked(lat, params, st, LARGE["sweeps"],
+                                      LARGE["Nt"], dt, True,
+                                      anchor_every=LARGE["K"], generator=gen,
+                                      **track)
+        torch.cuda.synchronize()
+        t_seg = time.perf_counter()
+        res = ensemble_transport_real(lat, spec, params, st)
+        torch.cuda.synchronize()
+        return st, seg, res, time.perf_counter() - t_seg
+
+    (states, seg, res, transport_s), launches, sec = _counted(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    k1_want = expected_rotations(LARGE["sweeps"], LARGE["K"], LARGE["Nt"])
+    emit({"phase": "tracked.large_lattice", "lattice": [LARGE_L, LARGE_L],
+          "embedding": 4 * lat.n_sites, **LARGE, "seconds": sec,
+          "transport_seconds": transport_s,
+          "max_memory_allocated_gib": peak / 2**30,
+          "accepted": seg.accepted.int().tolist(), "dH": seg.dH.tolist(),
+          "stiffness": res.superfluid_stiffness.tolist(),
+          "launches": launches, "k1_schedule": k1_want,
+          "guard": dict(ph_eigh.GUARD), "gpu": power})
+    check(launches["rotation_s_parts"] == k1_want,
+          f"large lattice: {launches['rotation_s_parts']} K1 launches, the "
+          f"schedule gives {k1_want}")
+    check(launches["weighted_lorentzian_sum"] == 2,
+          f"large lattice: {launches['weighted_lorentzian_sum']} K2 "
+          "launches, expected 2")
+    check(launches["chain_matvec"] == 4 * k1_want,
+          f"large lattice: {launches['chain_matvec']} K4 launches, expected "
+          f"4 a rotation ({4 * k1_want})")
+    check(launches["chain_sum"] > 0, "large lattice: chain_sum not launched")
+    check(bool(torch.isfinite(seg.dH).all()), f"large lattice: dH {seg.dH}")
+    _finite(seg.observables, "large_lattice.observables")
+    _finite(states, "large_lattice.state")
+    _finite(res, "large_lattice.transport")
+    check(tuple(res.optical_conductivity.shape)
+          == (LARGE["chains"], spec.n_omega), "large lattice: sigma shape")
+    del states, seg, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the graft dry run's ranks, all on the card
+GRAFT_RANKS = 2
+
+
+def graft_entry_phase(dev, power: str) -> dict:
+    """``graft_entry.entry()`` on the card, its sweep run twice with finite
+    output, then ``dryrun_multichip(2)`` with both ranks on the card under
+    its own limit (``graft_entry.DRYRUN_SECONDS``, which kills the ranks'
+    process groups).  Returns the
+    launches of the entry's sweeps and of every rank's dry run."""
+    from dwavehmc_tpu_torch import graft_entry
+
+    def sweeps():
+        fn, args = graft_entry.entry()
+        check(args[1].delta_re.device.type == "cuda",
+              "graft.entry: the state is not on the card")
+        return [fn(*args) for _ in range(2)]
+
+    outs, launches, sec = _counted(sweeps)
+    emit({"phase": "graft.entry", "seconds": sec,
+          "delta_shape": list(outs[0][0].shape),
+          "dH": [dH.tolist() for _delta, dH in outs], "launches": launches,
+          "gpu": power})
+    for delta, dH in outs:
+        check(bool(torch.isfinite(delta).all() & torch.isfinite(dH).all()),
+              f"graft.entry: Δ or dH not finite (dH {dH.tolist()})")
+    check(launches["chain_sum"] > 0, "graft.entry: chain_sum not launched")
+
+    t0 = time.perf_counter()
+    reports = graft_entry.dryrun_multichip(GRAFT_RANKS)
+    sec = time.perf_counter() - t0
+    total = dict(launches)
+    for r in reports:
+        for name, n in r["launches"].items():
+            total[name] += n
+    emit({"phase": "graft.dryrun_multichip", "ranks": GRAFT_RANKS,
+          "seconds": sec, "reports": [{k: r[k] for k in (
+              "rank", "device", "rows", "rows_2d", "impurities",
+              "collectives", "launches")} for r in reports], "gpu": power})
+    for r in reports:
+        check(r["device"].startswith("cuda"),
+              f"graft.dryrun rank {r['rank']} ran on {r['device']}")
+        check(all(n > 0 for n in r["impurities"] + r["impurities_2d"]),
+              f"graft.dryrun rank {r['rank']}: a chain without disorder "
+              f"({r['impurities']}, {r['impurities_2d']})")
+        for name in ("rotation_s_parts", "weighted_lorentzian_sum",
+                     "chain_sum", "chain_matvec"):
+            check(r["launches"][name] > 0,
+                  f"graft.dryrun rank {r['rank']}: {name} not launched")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3260,6 +3437,12 @@ def main(argv=None) -> int:
     for name, n in tools_phases(dev, power).items():
         launches[name] += n
     for name, n in bench_phase(dev, power).items():
+        launches[name] += n
+    for name, n in large_lattice_phase(dev, power).items():
+        check(n > 0, f"kernel {name} was not launched by "
+              "tracked.large_lattice")
+        launches[name] += n
+    for name, n in graft_entry_phase(dev, power).items():
         launches[name] += n
     postprocess_cli_phase(power)
     quickcheck_phase(power)

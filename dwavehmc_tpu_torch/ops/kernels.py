@@ -146,7 +146,7 @@ def _load(path: Path):
                                                 i, i, i, i, i, f, p]
     lib.dwh_weighted_lorentzian_sum.restype = i
     for name in ("dwh_chain_sum_f32", "dwh_chain_sum_f64"):
-        getattr(lib, name).argtypes = [p, p, i, i, p]
+        getattr(lib, name).argtypes = [p, p, i, ctypes.c_longlong, p]
         getattr(lib, name).restype = i
     for name in ("dwh_chain_matvec_f32", "dwh_chain_matvec_f64"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, p]
@@ -350,10 +350,6 @@ def weighted_lorentzian_sum(omega, de, w2, eta: float):
 
 # --- K3, K4: per-chain sums in a fixed order --------------------------------
 
-#: the longest row K3 adds, and the longest K4 multiplies (its four trees
-#: of 16 values a thread must fit a block's registers in float64)
-CHAIN_SUM_MAX = 16384
-CHAIN_MATVEC_MAX = 4096
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -369,7 +365,9 @@ def tree_length(m: int) -> int:
 def chain_sum_plain(x):
     """Plain PyTorch K3: Σ over the last axis of x (…, m), any leading shape
     and float dtype, in the kernel's order: zero-padded to
-    ``tree_length(m)``, then x[i] + x[i + h] for h = P/2, …, 1."""
+    ``tree_length(m)``, then x[i] + x[i + h] for h = P/2, …, 1.  The
+    kernel runs this tree at any length: a row longer than one block's
+    registers hold has its upper levels folded as it is loaded."""
     m = x.shape[-1]
     x = torch.nn.functional.pad(x, (0, tree_length(m) - m))
     while x.shape[-1] > 1:
@@ -386,10 +384,9 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 def chain_sum_cuda(x):
-    """Launch K3 on a contiguous float32 or float64 CUDA tensor x (…, m)."""
+    """Launch K3 on a contiguous float32 or float64 CUDA tensor x (…, m),
+    rows of any length."""
     m = x.shape[-1]
-    if m > CHAIN_SUM_MAX:
-        raise ValueError(f"chain_sum: rows of {m} > {CHAIN_SUM_MAX}")
     suffix = _suffix(x.dtype)
     lead = x.shape[:-1]
     rows = math.prod(lead)
@@ -424,11 +421,9 @@ def chain_matvec_plain(ar, ai, vr, vi):
 
 def chain_matvec_cuda(ar, ai, vr, vi):
     """Launch K4 on float32 or float64 CUDA tensors ar/ai (B, n, n), vr/vi
-    (B, n)."""
+    (B, n), any n."""
     B, n = vr.shape
     dev, dt = vr.device, vr.dtype
-    if n > CHAIN_MATVEC_MAX:
-        raise ValueError(f"chain_matvec: n = {n} > {CHAIN_MATVEC_MAX}")
     suffix = _suffix(dt)
     for name, t, shape in (("ar", ar, (B, n, n)), ("ai", ai, (B, n, n)),
                            ("vr", vr, (B, n)), ("vi", vi, (B, n))):

@@ -41,7 +41,8 @@ def _reference_tree(x: np.ndarray) -> np.ndarray:
     return v[..., 0]
 
 
-@pytest.mark.parametrize("m", [1, 7, 256, 300, 1152])
+# 16562 = 2N at 91×91, past the 16384 one K3 block holds in registers
+@pytest.mark.parametrize("m", [1, 7, 256, 300, 1152, 16562])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_chain_sum_is_the_halving_tree(m, dtype):
     x = _rand((3, m), dtype)
@@ -66,6 +67,62 @@ def test_chain_matvec_is_the_complex_product(dtype):
     assert np.array_equal(wr.numpy(), _reference_tree(
         (ar * vr[:, None]).numpy()) - _reference_tree((ai * vi[:, None])
                                                        .numpy()))
+
+
+def test_chain_matvec_is_the_halving_tree_at_46x46():
+    """K4's plain version at n = 2N = 4232 (46×46, past the 4096 one K4
+    block holds in registers), one chain, float32: each of the four
+    products is the numpy halving tree over its zero-padded 8192 values."""
+    n = 4232
+    ar, ai = _rand((1, n, n), torch.float32, 1), _rand((1, n, n),
+                                                       torch.float32, 2)
+    vr, vi = _rand((1, n), torch.float32, 3), _rand((1, n), torch.float32, 4)
+    wr, wi = kernels.chain_matvec_plain(ar, ai, vr, vi)
+    a, b, u, w = (x.numpy() for x in (ar, ai, vr[:, None], vi[:, None]))
+    assert np.array_equal(wr.numpy(), _reference_tree(a * u)
+                          - _reference_tree(b * w))
+    assert np.array_equal(wi.numpy(), _reference_tree(a * w)
+                          + _reference_tree(b * u))
+
+
+def _long_row_walk(x: np.ndarray, T: int, G: int) -> np.ndarray:
+    """The order in which ``csrc/chain_sum.cu``'s long-row kernels add a
+    row, in numpy: thread t walks its elements x[t + T·q] in bit-reversed
+    order of q, G leaves a load added as adjacent pairs, the loads' sums
+    merged by a binary counter; then the halving tree over the T threads."""
+    m = x.shape[-1]
+    P = kernels.tree_length(m)
+    lq = (P // T).bit_length() - 1
+    t = np.arange(T)
+    stack, s = {}, None
+    for c in range((P // T) // G):
+        y = [np.where(i < m, x[..., np.minimum(i, m - 1)], x.dtype.type(0))
+             for i in (t + T * int(format(c * G + g, f"0{lq}b")[::-1], 2)
+                       for g in range(G))]
+        w = 1
+        while w < G:
+            y[::2 * w] = [a + b for a, b in zip(y[::2 * w], y[w::2 * w])]
+            w *= 2
+        s, level = y[0], 0
+        while (c >> level) & 1:
+            s = stack.pop(level) + s
+            level += 1
+        stack[level] = s
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s[..., 0]
+
+
+@pytest.mark.parametrize("m,T,G", [(16385, 512, 16), (40000, 512, 16),
+                                   (4232, 256, 8), (8464, 256, 8)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_the_long_row_walk_is_the_halving_tree(m, T, G, dtype):
+    """The long-row kernels' order of additions, at K3's (T, G) = (512,
+    16) and K4's (256, 8), is the halving tree bit for bit: the bit
+    reversal pairs q with q + Q/2 first, as ``chain_sum_plain`` does."""
+    x = _rand((2, m), torch.float64).numpy().astype(dtype) * 1e3
+    assert np.array_equal(_long_row_walk(x, T, G), _reference_tree(x))
 
 
 def _block_equals_batch(f, *xs, k=2):

@@ -12,8 +12,8 @@
 * the memory plan at 32×32 equal to the JAX formula's for a given card
   size;
 * each mode's JSON keys against the TPU artifacts ``examples/config5_*.json``;
-* config 5's first thermalization sweep on one 16×16 chain against the JAX
-  package's on its draws.
+* config 5's first thermalization sweep on one 16×16 chain (and, marked
+  ``slow``, on two 32×32 chains) against the JAX package's on its draws.
 
 Run as a script, this file is the ranks' program:
 
@@ -250,12 +250,21 @@ def test_each_modes_keys_match_the_tpu_artifacts(runs, tmp_path):
     assert run.report["max_memory_allocated_gib"] is None   # no card
 
 
-def test_first_therm_sweep_matches_the_jax_package_at_16x16():
+@pytest.mark.parametrize("L,chains,dtype,atol", [
+    (16, 1, "float32", 1e-3),
+    pytest.param(32, 2, "float32", 1e-3, marks=pytest.mark.slow),
+    pytest.param(32, 2, "float64", 1e-8, marks=pytest.mark.slow)])
+def test_first_therm_sweep_matches_the_jax_package(L, chains, dtype, atol):
     """Config 5's couplings (β = 20) and its first thermalization sweep
-    (Nt = 20, 6 rotations per step, exact anchor) on one 16×16 chain, on
-    the JAX run's initial ensemble and draws: dH within 1e-3 and the same
-    decision.  The cold start's dH grows with the degrees of freedom, so at
-    32×32 the first sweeps are mostly rejected in both packages."""
+    (Nt = 20, 6 rotations per step, exact anchor) on one 16×16 chain, or on
+    two chains at config 5's 32×32 (in float32, as config 5 runs, and in
+    float64), on the JAX run's initial ensemble and draws: dH within
+    ``atol`` and the same decisions.  The cold start's dH grows with the
+    degrees of freedom, so at 32×32 the first sweeps are mostly rejected in
+    both packages.  Each run prints both packages' per-chain dH; a
+    float32 run also prints each package's float32 error, against the
+    port's float64 sweep on the same inputs (the float32 state, params, dt
+    and draws cast up; in float64 the two packages agree to 1e-8)."""
     import jax
     import jax.numpy as jnp
 
@@ -267,32 +276,54 @@ def test_first_therm_sweep_matches_the_jax_package_at_16x16():
     from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
 
     torch.set_num_threads(2)
-    L16, n = 16, 256
-    jp = jmake_params(**c5.PHYS)
-    js = jens.init_ensemble_real(JLat(L16, L16), jp, jax.random.PRNGKey(0),
-                                 1, dtype=jnp.float32, n_imp=0.05)
+    n = L * L
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jp = jmake_params(**c5.PHYS, dtype=jdt)
+    js = jens.init_ensemble_real(JLat(L, L), jp, jax.random.PRNGKey(0),
+                                 chains, dtype=jdt, n_imp=0.05)
     dt = calc_optimal_dt(20.0, 0.8, 1.0, 20)
-    _, jseg = jens.run_segment_tracked(JLat(L16, L16), jp, js, 1, 20,
-                                       jnp.full((1,), dt, jnp.float32),
+    _, jseg = jens.run_segment_tracked(JLat(L, L), jp, js, 1, 20,
+                                       jnp.full((chains,), dt, jdt),
                                        False, None, 0, 6)
     ks = jax.vmap(lambda k: jax.random.split(k, 3))(js.key)
     normals = np.array(jax.vmap(lambda k: jax.random.normal(
-        k, (2, n, 2), jnp.float32))(ks[:, 1]))[None]
+        k, (2, n, 2), jdt))(ks[:, 1]))[None]
     uniforms = np.array(jax.vmap(lambda k: jax.random.uniform(
         k, (), jnp.float32))(ks[:, 2]))[None]
-    lat = LatticeSpec(L16, L16)
-    params = c5.setup(CPU)
-    st = init_ensemble_real(lat, params, None, 1, n_imp=0.05, device=CPU,
+    lat = LatticeSpec(L, L)
+    params = c5.setup(CPU, tdt)
+    st = init_ensemble_real(lat, params, None, chains, n_imp=0.05,
+                            dtype=tdt, device=CPU,
                             disorder=torch.as_tensor(np.array(js.disorder)),
                             delta0_re=torch.as_tensor(np.array(js.delta_re)),
                             delta0_im=torch.as_tensor(np.array(js.delta_im)))
-    _, seg = run_segment_tracked(lat, params, st, 1, 20,
-                                 torch.full((1,), dt), False,
+    dts = torch.full((chains,), dt, dtype=tdt)
+    _, seg = run_segment_tracked(lat, params, st, 1, 20, dts, False,
                                  tracked_iters=6,
                                  normals=torch.as_tensor(normals),
                                  uniforms=torch.as_tensor(uniforms))
+    print(f"{L}x{L} {dtype} first therm sweep dH: port "
+          f"{seg.dH.numpy().tolist()}, "
+          f"JAX {np.asarray(jseg.dH).tolist()}; accepted: port "
+          f"{seg.accepted.numpy().tolist()}, JAX "
+          f"{np.asarray(jseg.accepted).tolist()}")
+    if tdt == torch.float32:
+        up = lambda x: torch.as_tensor(np.array(x)).double()  # noqa: E731
+        params64 = type(params)(*map(up, params))
+        st64 = init_ensemble_real(lat, params64, None, chains, n_imp=0.05,
+                                  dtype=torch.float64, device=CPU,
+                                  disorder=up(js.disorder),
+                                  delta0_re=up(js.delta_re),
+                                  delta0_im=up(js.delta_im))
+        _, ref = run_segment_tracked(
+            lat, params64, st64, 1, 20, up(dts), False, tracked_iters=6,
+            normals=up(normals), uniforms=torch.as_tensor(uniforms))
+        ref = ref.dH.numpy()
+        print(f"{L}x{L} float64 on the float32 inputs dH: {ref.tolist()}; "
+              f"float32 error: port {(seg.dH.numpy() - ref).tolist()}, JAX "
+              f"{(np.asarray(jseg.dH) - ref).tolist()}")
     np.testing.assert_allclose(seg.dH.numpy(), np.asarray(jseg.dH),
-                               atol=1e-3)
+                               atol=atol)
     np.testing.assert_array_equal(seg.accepted.numpy(),
                                   np.asarray(jseg.accepted))
 

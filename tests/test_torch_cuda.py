@@ -566,7 +566,8 @@ def _randn(shape, dtype, cuda, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("rows,m", [(1, 1), (3, 7), (8, 1152), (5, 2048),
-                                    (1152, 300), (2, 16384)])
+                                    (1152, 300), (2, 16384), (2, 16385),
+                                    (3, 16562), (2, 40000)])
 def test_chain_sum_kernel_is_bit_equal_to_plain(cuda, dtype, rows, m):
     x = _randn((rows, m), dtype, cuda, m)
     before = kernels.LAUNCHES["chain_sum"]
@@ -579,9 +580,15 @@ def test_chain_sum_kernel_is_bit_equal_to_plain(cuda, dtype, rows, m):
     assert torch.equal(kernels.chain_sum(x[:k]), got[:k])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n", [(1, 1), (3, 5), (8, 1152), (2, 2048),
-                                 (1, 4096)])
+# rows longer than 4096 fold their upper levels as they load (46×46: n =
+# 4232); float64 at 8464 (92×92) with one chain, where the plain version's
+# padded products take gigabytes
+@pytest.mark.parametrize("dtype,B,n", [
+    (dtype, B, n) for B, n in ((1, 1), (3, 5), (8, 1152), (2, 2048),
+                               (1, 4096))
+    for dtype in (torch.float32, torch.float64)] + [
+    (torch.float32, 1, 4097), (torch.float32, 2, 4232),
+    (torch.float32, 2, 4608), (torch.float64, 1, 8464)])
 def test_chain_matvec_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
     args = tuple(_randn(s, dtype, cuda, i) for i, s in enumerate(
         ((B, n, n), (B, n, n), (B, n), (B, n))))
@@ -597,17 +604,22 @@ def test_chain_matvec_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
 
 
 def test_chain_launchers_check_their_inputs(cuda):
+    """Wrong dtypes and CPU tensors raise; rows past one block's register
+    tree (16384 for K3, 4096 for K4) are added in the plain version's
+    order."""
     x = _randn((2, 8), torch.float32, cuda, 0)
     with pytest.raises(TypeError):
         kernels.chain_sum_cuda(x.half())
     with pytest.raises(ValueError):
         kernels.chain_sum_cuda(x.cpu())
-    with pytest.raises(ValueError):
-        kernels.chain_sum_cuda(torch.zeros(1, 16385, device=cuda))
+    long = _randn((1, 16385), torch.float32, cuda, 1)
+    assert torch.equal(kernels.chain_sum_cuda(long),
+                       kernels.chain_sum_plain(long))
     a = _randn((1, 4097, 4097), torch.float32, cuda, 1)
-    v = torch.zeros(1, 4097, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.chain_matvec_cuda(a, a, v, v)
+    v = _randn((1, 4097), torch.float32, cuda, 2)
+    got = kernels.chain_matvec_cuda(a, a, v, v)
+    want = kernels.chain_matvec_plain(a, a, v, v)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
