@@ -22,8 +22,13 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    rows past one block's registers (K3 to 40000 values, K4 to n = 8464):
    they must be bit-equal, and a block of a batch alone must get the
    batch's bits; times each beside its plain version and the one PyTorch
-   call that computes the same function; times K1 alone at the bench's
-   three shapes;
+   call that computes the same function; then K5 ``spectral_norm_est``
+   (``csrc/sigma_cap.cu``, the σ-cap's power iteration in one launch) at
+   the σ-cap's shapes from 8 × 512 to 1 × 8464 float64, bit-equal to its
+   plain version and block-alone invariant, timed beside the σ-cap as the
+   rotation ran it before (K4 and K3 launches, wall clock with its stream
+   sync), the library's iteration and two bounds (``kernel.sigma_cap``);
+   times K1 alone at the bench's three shapes;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
    float64 ``eigh`` within 4× float32 ``eigh``'s error (or 1e-5·‖M‖∞),
@@ -125,8 +130,13 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    disorder and Δ, accepts, dH), and against the one-process batch the
    initial ensemble, disorder and decisions equal, and, in each dtype in
    which every call the sweep makes gives a block the batch's bits (the
-   probe ``_batch_invariance``; K3 and K4 must), every saved array
+   probe ``_batch_invariance``; K3, K4 and K5 must), every saved array
    bit-equal; the calls that are not are named (``config5.mesh_exec``);
+   config 5's first therm sweep on the JAX run's draws
+   (``tests/data/config5_replay_32x32.npz``, two 32×32 chains) in float64
+   within 1e-8 of the CPU port's dH with its decisions, in float32 finite
+   with the CPU's decisions and within 1e-2 of the card's float64 run on
+   the float32 inputs (``config5.replay``);
    counts are reset before and read after each;
 13. runs the measurement and audit tools (after 12, before the CLIs of
    10): ``profile_production`` at its full width (64 chains of 24×24, Nt =
@@ -155,8 +165,8 @@ Run from the root of a checkout on a machine with one CUDA device.  It
 15. drives the tracked path past K4's one-block rows (``tracked.large_lattice``):
    2 chains of 46×46 (2N = 4232) at the production couplings, the guarded
    PH init, a 2-sweep segment with K = 2 (Nt = 2, exp2) and one transport
-   pass: every output finite, K1 on its schedule, K4 four times a
-   rotation, K2 twice, the allocator's peak and the seconds reported; then
+   pass: every output finite, K1 on its schedule, K5 once a rotation and
+   no K4, K2 twice, the allocator's peak and the seconds reported; then
    the graft entry: ``graft_entry.entry()`` on the card, its sweep twice
    (``graft.entry``), and ``dryrun_multichip(2)`` with both ranks on the
    card under its own limit, each rank's launches in its report
@@ -459,6 +469,10 @@ def kernel_phases(dev, gen, power: str):
     return table
 
 
+#: the kernels the main path launches (K4 has had no caller on it since K5
+#: took the σ-cap)
+PATH_KERNELS = ("rotation_s_parts", "weighted_lorentzian_sum", "chain_sum",
+                "sigma_cap")
 #: K3 and K4 (``csrc/chain_sum.cu``) at the main path's shapes first (the
 #: energies' and the σ-cap's sums over 2N = 1152 values of 8 chains, the
 #: σ-cap's (8, 1152, 1152) product), then unaligned, production-batch,
@@ -550,6 +564,198 @@ def chain_kernel_phases(dev, power: str) -> dict:
         del args, got, want, alone, lib
         if name == "chain_matvec":
             del A, v
+    return table
+
+
+#: K5 (``csrc/sigma_cap.cu``) at the σ-cap's shapes: the bench's 16×16/b8,
+#: the main path's and 24×24/b64, config 5's 32×32 at 2 chains, 46×46 and
+#: float64 92×92: (chains, n, dtype, is the main path's)
+SIGMA_CASES = ((8, 512, "float32", False),
+               (N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
+               (64, 2 * L_MAIN * L_MAIN, "float32", False),
+               (2, 2 * C5_L * C5_L, "float32", False),
+               (2, 4232, "float32", False),
+               (1, 8464, "float64", False))
+#: the card's L2 cache (H100 SXM): S that fits is read from device memory
+#: once, not once a pass
+L2_BYTES = 50 * 2**20
+
+
+def _old_sigma_cap(sr, si, iters: int = 3):
+    """The σ-cap as the tracked rotation ran it before K5: K4 and K3
+    launches between elementwise ops, v0's √n made on the host and copied
+    to the card."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    B, n = sr.shape[0], sr.shape[-1]
+    vr = torch.full((B, n), 1.0, dtype=sr.dtype, device=sr.device) / (
+        torch.sqrt(torch.tensor(float(n), dtype=sr.dtype)).to(sr.device))
+    vi = torch.zeros_like(vr)
+    for _ in range(iters):
+        wr, wi = kernels.chain_matvec(sr, si, vr, vi)
+        nrm = torch.sqrt(kernels.chain_sum(wr * wr + wi * wi))[:, None] \
+            + 1e-30
+        vr, vi = wr / nrm, wi / nrm
+    wr, wi = kernels.chain_matvec(sr, si, vr, vi)
+    return torch.sqrt(kernels.chain_sum(wr * wr + wi * wi))
+
+
+def _library_sigma_cap(S, iters: int = 3):
+    """The same iteration in PyTorch's calls (order-unstable): the complex
+    ``matmul``, the squares and ``torch.sum``, v0 made on the card."""
+    B, n = S.shape[0], S.shape[-1]
+    v = torch.full((B, n, 1), 1.0 / n ** 0.5, dtype=S.dtype, device=S.device)
+    for _ in range(iters):
+        w = torch.matmul(S, v)
+        v = w / (torch.sqrt(torch.sum(w.real * w.real + w.imag * w.imag,
+                                      dim=(-2, -1)))[:, None, None] + 1e-30)
+    w = torch.matmul(S, v)
+    return torch.sqrt(torch.sum(w.real * w.real + w.imag * w.imag,
+                                dim=(-2, -1)))
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Host milliseconds per call over ``reps`` calls, the card drained
+    before and after (so a call's own stream syncs are inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _device_launches(fn) -> int:
+    """Kernels and copies the card runs for one call of ``fn``
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _sigma_cap_plans(sr, si, want) -> dict:
+    """K5 at each of ``kernels.SIGMA_CAP_CTAS`` CTAs a chain, as many chains
+    at a time as the card holds (the rest in turn): bit-equal to ``want``
+    and the graph-replay ms (a comparison of the plans; the wrapper's own
+    choice is timed apart)."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    B, n, dt = sr.shape[0], sr.shape[-1], sr.dtype
+    query = getattr(kernels._library(),
+                    f"dwh_sigma_cap_resident_{kernels._suffix(dt)}")
+    out = {}
+    for ctas in kernels.SIGMA_CAP_CTAS:
+        layout = kernels._sigma_cap_layout(n, ctas, dt.itemsize)
+        if layout is None or ctas > max(n, 4):
+            continue
+        at_once = min(B, query(n, layout[1], int(layout[0])) // ctas)
+        if at_once < 1:
+            continue
+        plan = kernels.SigmaCapPlan(ctas, *layout, at_once)
+
+        def run(plan=plan):
+            return kernels.spectral_norm_est_cuda(sr, si, plan=plan)
+
+        out[f"{ctas}x{at_once}"] = {
+            "bit_equal_plain": bool(torch.equal(run(), want)),
+            "ms": cuda_ms(run, 5, warmup=1, graph=True)}
+    return out
+
+
+def sigma_cap_phase(dev, power: str) -> dict:
+    """K5 against its plain version at ``SIGMA_CASES`` (bit-equal, and a
+    block of the batch alone gets the batch's bits), timed (CUDA-graph
+    replay and eager) beside the σ-cap as the rotation called it before
+    (wall clock per call, its stream sync included), the plain version,
+    the library's iteration under graph replay, and two bounds: S read
+    once and four times (a pass each) at the card's memory rate.  The
+    kernels and copies each σ-cap puts on the card are counted with
+    ``torch.profiler`` at the main path's shape.  Inputs from a generator
+    of their own."""
+    from dwavehmc_tpu_torch.ops import kernels
+
+    table = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    for B, n, dtype, main in SIGMA_CASES:
+        dt = getattr(torch, dtype)
+        a = torch.randn(B, n, n, generator=g, device=dev, dtype=dt)
+        sr = (a - a.mT) * 0.01
+        a = torch.randn(B, n, n, generator=g, device=dev, dtype=dt)
+        si = (a + a.mT) * 0.01
+        del a
+        before = kernels.LAUNCHES["sigma_cap"]
+        got = kernels.spectral_norm_est(sr, si)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["sigma_cap"] == before + 1,
+              "sigma_cap wrapper did not count its launch")
+        want = kernels.spectral_norm_est_plain(sr, si)
+        old = _old_sigma_cap(sr, si)
+        err = float((got - want).abs().max())
+        bit_equal = bool(torch.equal(got, want))
+        old_equal = bool(torch.equal(old, want))
+        k = max(1, B // 2)
+        invariant = bool(torch.equal(
+            kernels.spectral_norm_est(sr[:k], si[:k]), got[:k]))
+        plan = kernels._sigma_cap_plan(B, n, dt)
+        plans = _sigma_cap_plans(sr, si, want)
+        ms = cuda_ms(lambda: kernels.spectral_norm_est(sr, si), 20,
+                     graph=True)
+        eager_ms = cuda_ms(lambda: kernels.spectral_norm_est(sr, si), 20)
+        wall_ms = _wall_ms(lambda: kernels.spectral_norm_est(sr, si), 20)
+        old_wall_ms = _wall_ms(lambda: _old_sigma_cap(sr, si), 20)
+        plain_ms = cuda_ms(lambda: kernels.spectral_norm_est_plain(sr, si),
+                           2, warmup=1)
+        S = torch.complex(sr, si)
+        library_ms = cuda_ms(lambda: _library_sigma_cap(S), 20, graph=True)
+        lib_err = float((_library_sigma_cap(S) - want).abs().max())
+        del S
+        s_bytes = 2 * B * n * n * dt.itemsize
+        ops = 4 * 8 * B * n * n
+        bound_ms, bound_by = roofline(s_bytes + B * dt.itemsize, ops)
+        four_ms, _ = roofline(4 * s_bytes + B * dt.itemsize, ops)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        launches = {}
+        if main:
+            launches = {"sigma_cap": _device_launches(
+                lambda: kernels.spectral_norm_est(sr, si)),
+                "old": _device_launches(lambda: _old_sigma_cap(sr, si)),
+                "library": _device_launches(
+                    lambda: _library_sigma_cap(torch.complex(sr, si)))}
+            table["sigma_cap"] = row
+        emit({"phase": "kernel.sigma_cap", "shape": [B, n], "dtype": dtype,
+              "plan": plan._asdict(), "plans_ms": plans,
+              "bit_equal_plain": bit_equal,
+              "block_alone_bit_equal": invariant,
+              "old_sigma_cap_bit_equal_plain": old_equal,
+              "library_max_abs_diff": lib_err, **row,
+              "eager_ms": eager_ms, "wall_ms": wall_ms,
+              "old_wall_ms": old_wall_ms, "bound_four_reads_ms": four_ms,
+              "s_fits_l2": s_bytes <= L2_BYTES,
+              "device_ops_per_call": launches,
+              "seconds_so_far": time.perf_counter() - t0,
+              "launches": kernels.LAUNCHES["sigma_cap"], "gpu": power})
+        check(bit_equal, f"sigma_cap at {(B, n)} {dtype}: differs from its "
+              f"plain version by {err}")
+        check(all(p["bit_equal_plain"] for p in plans.values()),
+              f"sigma_cap at {(B, n)} {dtype}: a plan differs from the "
+              f"plain version ({plans})")
+        check(invariant, f"sigma_cap at {(B, n)} {dtype}: a block alone gets "
+              "other bits than inside the batch")
+        check(old_equal, f"sigma_cap at {(B, n)} {dtype}: the old σ-cap "
+              "differs from the plain version")
+        del sr, si, got, want, old
+        torch.cuda.empty_cache()
     return table
 
 
@@ -2691,6 +2897,81 @@ C5_EXEC_ARGS = ["--mode", "mesh_exec", "--batch", "8", "--sweeps", "2",
                 "--L", str(C5_L)]
 
 
+#: config 5's replay draws: the JAX run's initial ensemble and first-sweep
+#: draws of two 32×32 chains with the CPU's dH beside them
+#: (``tests/test_torch_config5_replay.py`` writes and checks the file)
+REPLAY_DATA = os.path.join(REPO, "tests", "data", "config5_replay_32x32.npz")
+#: the card's float64 dH against the CPU port's; the card's float32 dH
+#: against its float64 run on the float32 inputs: the sum of the two
+#: packages' float32 errors at 32×32 and β = 20 (ROADMAP Queue 3)
+REPLAY_F64_TOL, REPLAY_F32_TOL = 1e-8, 1e-2
+
+
+def config5_replay_phase(dev, power: str) -> dict:
+    """Config 5's first thermalization sweep (Nt = 20, 6 rotations a step,
+    exact anchor) on the JAX run's draws (``REPLAY_DATA``) on the card, in
+    float64, in float32, and in float64 on the float32 inputs
+    (``demo_config5.replay_first_therm_sweep``): the float64 dH within
+    ``REPLAY_F64_TOL`` of the CPU port's with its decisions; the float32 dH
+    finite, with the CPU's decisions, within ``REPLAY_F32_TOL`` of the
+    float64 run on its inputs.  Reported beside them: the float64 sweep
+    with K1's plain version in float64 (outside the counted launches)."""
+    from dwavehmc_tpu_torch.drivers import demo_config5 as c5
+    from dwavehmc_tpu_torch.ops import kernels, tracked_eigh
+
+    d = np.load(REPLAY_DATA)
+    (runs, launches, sec) = _counted(lambda: {
+        "f64": c5.replay_first_therm_sweep(d, "f64", dev),
+        "f32": c5.replay_first_therm_sweep(d, "f32", dev),
+        "f32_as_f64": c5.replay_first_therm_sweep(d, "f32", dev,
+                                                  torch.float64)})
+    (dh64, acc64), (dh32, acc32), (up, _) = (runs["f64"], runs["f32"],
+                                             runs["f32_as_f64"])
+    # what K1's float32 S (the TPU wrapper's cast, kept for float64 runs)
+    # moves: the float64 sweep again with K1's plain version in float64
+    real = tracked_eigh.rotation_s_parts
+    tracked_eigh.rotation_s_parts = kernels.rotation_s_parts_plain
+    try:
+        dh64_k1 = c5.replay_first_therm_sweep(d, "f64", dev)[0]
+    finally:
+        tracked_eigh.rotation_s_parts = real
+    f64_err = float(np.abs(dh64 - d["f64_dH_port_cpu"]).max())
+    f32_err = float(np.abs(dh32 - up).max())
+    emit({"phase": "config5.replay", "seconds": sec,
+          "float64": {"dH_card": dh64.tolist(),
+                      "dH_port_cpu": d["f64_dH_port_cpu"].tolist(),
+                      "dH_jax_cpu": d["f64_dH_jax_cpu"].tolist(),
+                      "accepted_card": acc64.tolist(),
+                      "accepted_cpu": d["f64_accepted_cpu"].tolist(),
+                      "max_abs_diff_cpu": f64_err, "tol": REPLAY_F64_TOL,
+                      "dH_card_k1_plain_float64": dh64_k1.tolist(),
+                      "k1_plain_minus_cpu": (
+                          dh64_k1 - d["f64_dH_port_cpu"]).tolist()},
+          "float32": {"dH_card": dh32.tolist(),
+                      "dH_card_float64": up.tolist(),
+                      "dH_port_cpu": d["f32_dH_port_cpu"].tolist(),
+                      "dH_jax_cpu": d["f32_dH_jax_cpu"].tolist(),
+                      "dH_port_cpu_float64": d[
+                          "f32_dH_port_cpu_float64"].tolist(),
+                      "accepted_card": acc32.tolist(),
+                      "accepted_cpu": d["f32_accepted_cpu"].tolist(),
+                      "error_card": (dh32 - up).tolist(),
+                      "float64_card_minus_cpu": (
+                          up - d["f32_dH_port_cpu_float64"]).tolist(),
+                      "max_abs_error": f32_err, "tol": REPLAY_F32_TOL},
+          "launches": launches, "gpu": power})
+    check(f64_err <= REPLAY_F64_TOL, f"config5.replay: the card's float64 dH "
+          f"is {f64_err:.3g} from the CPU's (> {REPLAY_F64_TOL})")
+    check(np.array_equal(acc64, d["f64_accepted_cpu"]),
+          "config5.replay: float64 decisions differ from the CPU's")
+    check(np.isfinite(dh32).all(), "config5.replay: float32 dH not finite")
+    check(np.array_equal(acc32, d["f32_accepted_cpu"]),
+          "config5.replay: float32 decisions differ from the CPU's")
+    check(f32_err <= REPLAY_F32_TOL, f"config5.replay: the card's float32 dH "
+          f"is {f32_err:.3g} from its float64 run (> {REPLAY_F32_TOL})")
+    return launches
+
+
 def _mesh_exec_blocks(c5, dev, ns, dtype, W: int,
                       work: str) -> tuple[dict, dict]:
     """The ranks' blocks of the ``mesh_exec`` ensemble run one after another
@@ -2744,7 +3025,7 @@ def _mesh_exec_blocks(c5, dev, ns, dtype, W: int,
 
 #: the library and port calls a tracked sweep makes, by the probe's names
 #: (``_batch_invariance``): a sweep is batch-invariant when all of these are
-SWEEP_CALLS = ("matmul", "matmul_tn", "row_sum", "chain_sum", "chain_matvec",
+SWEEP_CALLS = ("matmul", "matmul_tn", "row_sum", "chain_sum", "sigma_cap",
                "eigh")
 
 
@@ -2753,7 +3034,8 @@ def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
     B / W chains the same bits alone as inside the batch of B: the batched
     products (B, n, n)·(B, n, n) and (B, n, n)ᵀ·(B, n, n) (the rotations),
     the forces' row sums over (B, n/2, n), K3 ``chain_sum`` over (B, n)
-    (the energies) and K4 ``chain_matvec`` (the σ-cap's power iteration),
+    (the energies), K5 ``spectral_norm_est`` (the σ-cap) and K4
+    ``chain_matvec`` (the σ-cap's product before K5),
     and the embedding's ``eigh`` (the anchor, at (W, 2n, 2n), one chain
     alone).  Also the two calls K3 and K4 replace: the per-chain
     ``torch.sum`` over (B, n) and the batched matrix-vector product
@@ -2773,6 +3055,8 @@ def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
              ("chain_sum", lambda x, y: kernels.chain_sum(y[..., 0])),
              ("chain_matvec", lambda x, y: kernels.chain_matvec(
                  x, x.mT.contiguous(), y[..., 0], -y[..., 0])[0]),
+             ("sigma_cap", lambda x, y: kernels.spectral_norm_est(
+                 x, x.mT.contiguous())),
              ("matvec", lambda x, y: x @ y),
              ("sum_per_chain", lambda x, y: y[..., 0].sum(-1)))
     out = {name: bool(torch.equal(f(a, v)[:k], f(a[:k], v[:k])))
@@ -2868,8 +3152,8 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
                   f"config5.mesh_exec {name}: the ranks' {k} differs from "
                   "one process")
         probe = res[name]["batch_invariant"]
-        for call in ("chain_sum", "chain_matvec"):
-            check(probe[call], f"config5.mesh_exec {name}: K3/K4 {call} "
+        for call in ("chain_sum", "chain_matvec", "sigma_cap"):
+            check(probe[call], f"config5.mesh_exec {name}: K3/K4/K5 {call} "
                   "gives a block alone other bits than in the batch")
         # with every call of the sweep batch-invariant, the ranks must be
         # bit-equal to one process on every saved array (F6)
@@ -3229,7 +3513,7 @@ def large_lattice_phase(dev, power: str) -> dict:
     """``init_ensemble_real`` (the guarded PH solve), a 2-sweep
     ``run_segment_tracked`` and one ``ensemble_transport_real`` pass at
     46×46 on the card, the counts reset before and read after: K1 on the
-    schedule, K2 twice, K3 and K4 launched; every dH, observable, state and
+    schedule, K2 twice, K3 launched, K5 once a rotation and no K4; every dH, observable, state and
     transport output finite; the allocator's peak and the seconds
     printed."""
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
@@ -3287,9 +3571,10 @@ def large_lattice_phase(dev, power: str) -> dict:
     check(launches["weighted_lorentzian_sum"] == 2,
           f"large lattice: {launches['weighted_lorentzian_sum']} K2 "
           "launches, expected 2")
-    check(launches["chain_matvec"] == 4 * k1_want,
-          f"large lattice: {launches['chain_matvec']} K4 launches, expected "
-          f"4 a rotation ({4 * k1_want})")
+    check(launches["sigma_cap"] == k1_want,
+          f"large lattice: {launches['sigma_cap']} K5 launches, expected "
+          f"one a rotation ({k1_want})")
+    check(launches["chain_matvec"] == 0, "large lattice: K4 launched")
     check(launches["chain_sum"] > 0, "large lattice: chain_sum not launched")
     check(bool(torch.isfinite(seg.dH).all()), f"large lattice: dH {seg.dH}")
     _finite(seg.observables, "large_lattice.observables")
@@ -3347,8 +3632,7 @@ def graft_entry_phase(dev, power: str) -> dict:
         check(all(n > 0 for n in r["impurities"] + r["impurities_2d"]),
               f"graft.dryrun rank {r['rank']}: a chain without disorder "
               f"({r['impurities']}, {r['impurities_2d']})")
-        for name in ("rotation_s_parts", "weighted_lorentzian_sum",
-                     "chain_sum", "chain_matvec"):
+        for name in PATH_KERNELS:
             check(r["launches"][name] > 0,
                   f"graft.dryrun rank {r['rank']}: {name} not launched")
     return total
@@ -3379,16 +3663,21 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     table = kernel_phases(dev, gen, power)
     table.update(chain_kernel_phases(dev, power))
+    table.update(sigma_cap_phase(dev, power))
     anchor_phases(dev, gen, power)
     ph_draws_phase(dev, power)
     for solver in ("qdwh", "ph"):
         reference_phase(dev, args.seed, solver)
     launches = main_path(dev, args.seed, power)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
+    check(launches["chain_matvec"] == 0,
+          "the main path launched K4 (the σ-cap is K5's)")
     scan_launches, vec = scan_phases(dev, power)
     for name, n in scan_launches.items():
-        check(n > 0, f"kernel {name} was not launched by the scan")
+        check(n > 0 or name not in PATH_KERNELS,
+              f"kernel {name} was not launched by the scan")
         launches[name] += n
     reference_complex_phase(dev, args.seed)
     # path B (complex) launches K2 only; path A (host readout) both kernels
@@ -3410,7 +3699,8 @@ def main(argv=None) -> int:
     W = ranks_for_sharding()
     scan_sharded_equal_phase(dev, power, W)
     for name, n in scan_sharded_phase(dev, power, W, vec).items():
-        check(n > 0, f"kernel {name} was not launched by scan.sharded")
+        check(n > 0 or name not in PATH_KERNELS,
+              f"kernel {name} was not launched by scan.sharded")
         launches[name] += n
     for name, n in scan_beta_phase(dev, power, W).items():
         launches[name] += n
@@ -3428,7 +3718,8 @@ def main(argv=None) -> int:
             launches[name] += n
     for counts in (config5_card_phase(dev, power),
                    config5_demo32_phase(dev, power),
-                   probe_fullspec_phase(dev, power)):
+                   probe_fullspec_phase(dev, power),
+                   config5_replay_phase(dev, power)):
         for name, n in counts.items():
             launches[name] += n
     torch.cuda.empty_cache()
@@ -3439,8 +3730,8 @@ def main(argv=None) -> int:
     for name, n in bench_phase(dev, power).items():
         launches[name] += n
     for name, n in large_lattice_phase(dev, power).items():
-        check(n > 0, f"kernel {name} was not launched by "
-              "tracked.large_lattice")
+        check(n > 0 or name not in PATH_KERNELS,
+              f"kernel {name} was not launched by tracked.large_lattice")
         launches[name] += n
     for name, n in graft_entry_phase(dev, power).items():
         launches[name] += n
@@ -3465,10 +3756,15 @@ def main(argv=None) -> int:
              source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
              replaces="dwavehmc_tpu/sampler/hmc_real.py:94",
              launches=launches["chain_sum"], **table["chain_sum"]),
+        # K4 has no caller on the path since K5 took the σ-cap
         dict(name="chain_matvec", route="cuda",
              source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
              replaces="dwavehmc_tpu/ops/tracked_eigh.py:57",
              launches=launches["chain_matvec"], **table["chain_matvec"]),
+        dict(name="sigma_cap", route="cuda",
+             source="dwavehmc_tpu_torch/csrc/sigma_cap.cu",
+             replaces="dwavehmc_tpu/ops/tracked_eigh.py:49-65",
+             launches=launches["sigma_cap"], **table["sigma_cap"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(power, flush=True)

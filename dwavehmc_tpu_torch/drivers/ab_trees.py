@@ -3,7 +3,7 @@ card, in the order A, B, B, A, each run a process of its own started from
 its checkout's root.
 
     python -m dwavehmc_tpu_torch.drivers.ab_trees --base DIR
-        [--what ph_anchor,production] [--out runs/ab_trees.json]
+        [--what ph_anchor,production,headline] [--out runs/ab_trees.json]
 
 A is this checkout, B the one at ``--base`` (for example the parent commit
 unpacked with ``git archive``).  Measurements:
@@ -15,11 +15,18 @@ unpacked with ``git archive``).  Measurements:
   rescue) and the median device ms of 3 calls after a warm-up;
 - ``production``: ``drivers/profile_production`` at the cut
   ``chip_smoke.py`` runs (64 × 24×24, 1 therm sweep, 2-sweep segments):
-  the timed plain segment's traj/s.
+  the timed plain segment's traj/s;
+- ``headline``: ``drivers/bench.bench`` with its ``tracked_fast`` mode
+  alone at the defaults (16×16, 8 chains, 10 therm sweeps, a warm-up and
+  3 timed segments of 20 sweeps; no ``eigh`` figures, no legs): its
+  traj/s.
 
-Each run's JSON is kept whole; the summary gives each measurement per
-checkout in run order.  Any run that fails makes the command exit
-nonzero.
+``production`` and ``headline`` also give a digest (SHA-256) of the dH
+bits of every segment the run made, in order, so that an A/B shows
+whether anything but time moved: the checkout's ``run_segment_tracked``
+is wrapped where the measured module looks it up.  Each run's JSON is
+kept whole; the summary gives each measurement per checkout in run
+order.  Any run that fails makes the command exit nonzero.
 """
 
 from __future__ import annotations
@@ -55,20 +62,76 @@ for i in range(cs.PH_DRAW_BATCHES):
 print(json.dumps({"ph_anchor": rows}))
 """
 
-#: profile_production's environment at chip_smoke's cut
-PRODUCTION_ENV = {"PROF_THERM": "1", "PROF_SWEEPS": "2"}
+#: every segment's dH bits, in call order, from a driver module's
+#: ``run_segment_tracked``
+RECORDER = r"""
+import hashlib, json, os, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+DEVICE = os.environ.get("AB_DEVICE", "cuda")
+
+def record(module):
+    real, seen = module.run_segment_tracked, []
+
+    def wrapped(*args, **kwargs):
+        states, seg = real(*args, **kwargs)
+        seen.append(seg.dH.detach().cpu().numpy().tobytes())
+        return states, seg
+
+    module.run_segment_tracked = wrapped
+    return seen
+
+def digest(seen):
+    h = hashlib.sha256()
+    for b in seen:
+        h.update(b)
+    return h.hexdigest()
+"""
+
+#: profile_production at chip_smoke's cut; the report goes to argv[1]
+PRODUCTION = RECORDER + r"""
+os.environ.update(PROF_THERM="1", PROF_SWEEPS="2")
+from dwavehmc_tpu_torch.drivers import profile_production as pp
+seen = record(pp)
+out = pp.profile(pp.knobs(), DEVICE, sys.argv[2])
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f, indent=1)
+print(json.dumps({"traj_per_sec": out["traj_per_sec"],
+                  "acceptance": out["acceptance"],
+                  "trace_ok": out["trace_error"] is None,
+                  "dH_digest": digest(seen), "segments": len(seen)}))
+"""
+
+#: the bench's tracked_fast mode alone at its defaults
+HEADLINE = RECORDER + r"""
+from dwavehmc_tpu_torch.drivers import bench
+seen = record(bench)
+kn = bench.knobs(dict(os.environ, BENCH_MODES="tracked_fast",
+                       BENCH_SKIP_EIGH="1", BENCH_PRODUCTION="0",
+                       BENCH_CAPACITY="0"))
+line, errors = bench.bench(kn, DEVICE)
+if errors:
+    raise SystemExit(f"bench failed: {errors}")
+mode = line["modes"]["tracked_fast"]
+print(json.dumps({"traj_per_sec": mode["traj_per_sec"],
+                  "acceptance": mode["acceptance"],
+                  "times_s": line["times_s"],
+                  "dH_digest": digest(seen), "segments": len(seen)}))
+"""
 
 
-def _run(tree: str, what: str, out_dir: str, tag: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=tree, SKIP_QUICK_TESTS="1")
+def _run(tree: str, what: str, out_dir: str, tag: str,
+         device: str = "cuda") -> dict:
+    env = dict(os.environ, PYTHONPATH=tree, SKIP_QUICK_TESTS="1",
+               AB_DEVICE=device)
     if what == "ph_anchor":
         cmd = [sys.executable, "-c", PH_ANCHOR]
+    elif what == "headline":
+        cmd = [sys.executable, "-c", HEADLINE]
     else:
-        env.update(PRODUCTION_ENV)
-        cmd = [sys.executable, "-m",
-               "dwavehmc_tpu_torch.drivers.profile_production",
-               "--device", "cuda", "--out",
-               os.path.join(out_dir, f"profile_{tag}.json")]
+        # the trace (hundreds of MB at 64 chains) stays under build/
+        cmd = [sys.executable, "-c", PRODUCTION,
+               os.path.join(out_dir, f"profile_{tag}.json"),
+               os.path.join(REPO, "build", "ab_trees", f"trace_{tag}")]
     p = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
                        text=True, timeout=1800)
     if p.returncode != 0:
@@ -77,18 +140,18 @@ def _run(tree: str, what: str, out_dir: str, tag: str) -> dict:
     return json.loads(p.stdout.strip().splitlines()[-1])
 
 
-def ab(base: str, whats: list, out_dir: str) -> dict:
+def ab(base: str, whats: list, out_dir: str, device: str = "cuda") -> dict:
     trees = {"A": REPO, "B": os.path.abspath(base)}
     out = {"trees": trees, "order": "ABBA", "runs": [], "summary": {}}
     for what in whats:
         for i, side in enumerate("ABBA"):
-            res = _run(trees[side], what, out_dir, f"{side}{i}")
+            res = _run(trees[side], what, out_dir, f"{side}{i}", device)
             out["runs"].append({"what": what, "side": side, "result": res})
             if what == "ph_anchor":
                 val = [(r["seed"], r["fell_back"], r["rescued"],
                         r["ms_median"]) for r in res["ph_anchor"]]
             else:
-                val = res["traj_per_sec"]
+                val = (res["traj_per_sec"], res["dH_digest"])
             out["summary"].setdefault(what, {}).setdefault(side, []).append(
                 val)
             print(f"[ab_trees] {what} {side}: {val}", file=sys.stderr,
@@ -99,12 +162,14 @@ def ab(base: str, whats: list, out_dir: str) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--base", required=True)
-    p.add_argument("--what", default="ph_anchor,production")
+    p.add_argument("--what", default="ph_anchor,production,headline")
     p.add_argument("--out", default=os.path.join("runs", "ab_trees.json"))
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="production and headline (ph_anchor: the card)")
     ns = p.parse_args(argv)
     out_dir = os.path.dirname(os.path.abspath(ns.out))
     os.makedirs(out_dir, exist_ok=True)
-    out = ab(ns.base, ns.what.split(","), out_dir)
+    out = ab(ns.base, ns.what.split(","), out_dir, ns.device)
     with open(ns.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out["summary"]))

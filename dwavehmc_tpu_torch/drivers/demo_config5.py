@@ -447,6 +447,46 @@ def card_demo(out_path, device, *, batch: int = 48, sweeps: int = 10,
                    np.concatenate(accs))
 
 
+#: the replayed sweep: config 5's first thermalization sweep (Nt = 20, 6
+#: rotations a step, exact anchor)
+REPLAY_NT, REPLAY_ITERS = 20, 6
+
+
+def replay_first_therm_sweep(draws, src: str, device, dtype=None):
+    """Config 5's first thermalization sweep on given draws: (dH, accepted)
+    per chain, as numpy arrays.  ``draws`` maps ``{src}_disorder``, ``{src}_delta_re``,
+    ``{src}_delta_im``, ``{src}_normals`` (1, B, 2, N, 2), ``{src}_uniforms``
+    (1, B) and ``dt`` (the JAX run's initial ensemble and draws, as
+    ``tests/data/config5_replay_32x32.npz`` holds them for src "f32" and
+    "f64").  The params and dt are made in the source's dtype and, with
+    ``dtype``, cast to it with the inputs (a float64 run on float32
+    inputs)."""
+    src_dtype = {"f32": torch.float32, "f64": torch.float64}[src]
+    dtype = dtype or src_dtype
+    disorder = np.asarray(draws[f"{src}_disorder"])
+    chains, n = disorder.shape
+    L = int(round(n ** 0.5))
+    lat = LatticeSpec(L, L)
+    params = setup(device, src_dtype)
+    params = type(params)(*(x.to(dtype) for x in params))
+
+    def given(key, dt=dtype):
+        return torch.as_tensor(np.asarray(draws[key])).to(device, dt)
+
+    st = init_ensemble_real(lat, params, None, chains, n_imp=PHYS["n_imp"],
+                            dtype=dtype, device=device,
+                            disorder=given(f"{src}_disorder"),
+                            delta0_re=given(f"{src}_delta_re"),
+                            delta0_im=given(f"{src}_delta_im"))
+    dt = torch.full((chains,), float(draws["dt"]), dtype=src_dtype).to(
+        device, dtype)
+    _, seg = run_segment_tracked(
+        lat, params, st, 1, REPLAY_NT, dt, False, tracked_iters=REPLAY_ITERS,
+        normals=given(f"{src}_normals"),
+        uniforms=given(f"{src}_uniforms", torch.float32))
+    return _np(seg.dH[0]), _np(seg.accepted[0])
+
+
 def _write(path, blk: Block, obj) -> None:
     if blk.rank != 0:
         return

@@ -11,9 +11,12 @@ K2     ``weighted_lorentzian_sum`` ``csrc/lorentzian.cu``; replaces
 K3     ``chain_sum``               ``csrc/chain_sum.cu``; the per-chain sums
                                    of the HMC energies in a fixed order (no
                                    TPU kernel: XLA's ``jnp.sum``)
-K4     ``chain_matvec``            ``csrc/chain_sum.cu``; the σ-cap's complex
+K4     ``chain_matvec``            ``csrc/chain_sum.cu``; the complex
                                    matrix-vector product in a fixed order (no
                                    TPU kernel: XLA's ``matmul``)
+K5     ``spectral_norm_est``       ``csrc/sigma_cap.cu``; the σ-cap's power
+       (launches: ``sigma_cap``)   iteration in one launch (no TPU kernel:
+                                   XLA's ``matmul`` and ``jnp.sum``)
 =====  ==========================  ==========================================
 
 K3 and K4 exist so that a chain's sweep gives the same bits whatever batch
@@ -21,6 +24,9 @@ it runs in (ROADMAP fault F6): PyTorch's CUDA reduction and cuBLAS's
 batched matrix-vector product pick their order of addition by the batch's
 size.  Both add in one halving tree (``csrc/chain_sum.cu``), and their plain
 versions run the same tree, so kernel and plain version agree to the bit.
+K5 runs the σ-cap of a tracked rotation (3 power iterations and a last
+product) in those trees in one launch, bit-equal to its plain version, the
+composition of K4's and K3's plain versions that the σ-cap ran before it.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into one
 shared library under ``build/kernels/`` beside the package (one ``nvcc -c``
@@ -53,13 +59,15 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu")
+SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu", "sigma_cap.cu")
+#: headers the sources include (part of the build's key)
+HEADERS = ("halving_tree.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
 LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0,
-            "chain_sum": 0, "chain_matvec": 0}
+            "chain_sum": 0, "chain_matvec": 0, "sigma_cap": 0}
 
 _lib = None
 
@@ -81,7 +89,7 @@ def _nvcc() -> str:
 
 def _source_tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC_DIR / src).read_bytes())
     return h.hexdigest()[:16]
 
@@ -150,6 +158,13 @@ def _load(path: Path):
         getattr(lib, name).restype = i
     for name in ("dwh_chain_matvec_f32", "dwh_chain_matvec_f64"):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, p]
+        getattr(lib, name).restype = i
+    for name in ("dwh_sigma_cap_f32", "dwh_sigma_cap_f64"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                       p]
+        getattr(lib, name).restype = i
+    for name in ("dwh_sigma_cap_resident_f32", "dwh_sigma_cap_resident_f64"):
+        getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = i
     return lib
 
@@ -448,3 +463,157 @@ def chain_matvec(ar, ai, vr, vi):
         return chain_matvec_plain(ar, ai, vr, vi)
     c = lambda x: x.contiguous()  # noqa: E731
     return chain_matvec_cuda(c(ar), c(ai), c(vr), c(vi))
+
+
+# --- K5: the σ-cap's power iteration in one launch ----------------------------
+
+def spectral_norm_est_plain(sr, si, iters: int = 3):
+    """Plain PyTorch K5: the power-iteration estimate of σ_max(S) per chain
+    for S = sr + i·si (B, n, n), (B,), as the JAX package's
+    ``_spectral_norm_est`` (S normal, so |λ| = σ): v = (1/√n, 0); ``iters``
+    times w = S·v (``chain_matvec_plain``), v = w / (√Σ|w|² + 1e-30) (the
+    sum ``chain_sum_plain``); then √Σ|S·v|².  v0's √n is taken on the
+    tensors' device, so the call makes no host copy."""
+    B, n = sr.shape[0], sr.shape[-1]
+    root_n = torch.sqrt(torch.full((), float(n), dtype=sr.dtype,
+                                   device=sr.device))
+    vr = torch.full((B, n), 1.0, dtype=sr.dtype, device=sr.device) / root_n
+    vi = torch.zeros_like(vr)
+    for _ in range(iters):
+        wr, wi = chain_matvec_plain(sr, si, vr, vi)
+        nrm = torch.sqrt(chain_sum_plain(wr * wr + wi * wi))[:, None] + 1e-30
+        vr, vi = wr / nrm, wi / nrm
+    wr, wi = chain_matvec_plain(sr, si, vr, vi)
+    return torch.sqrt(chain_sum_plain(wr * wr + wi * wi))
+
+
+#: shared memory a block may use on Hopper (``csrc/sigma_cap.cu``)
+SIGMA_CAP_SMEM_MAX = 232448
+#: CTAs a chain, most preferred first
+SIGMA_CAP_CTAS = (128, 64, 32, 16, 8, 4)
+#: CTAs a chain when the batch does not fit on the card at once
+SIGMA_CAP_WAVE_CTAS = 16
+#: a K5 CTA's warps, and the chunks in each warp's copy ring
+SIGMA_CAP_WARPS, SIGMA_CAP_STAGES = 8, 3
+
+
+class SigmaCapPlan(NamedTuple):
+    """K5's launch: one cooperative launch of ``ctas`` CTAs per chain,
+    ``at_once`` chains at a time (the others in turn); v in each CTA's
+    shared memory (``v_in_smem``) or read from L2; ``smem_bytes`` of
+    dynamic shared memory a CTA, as ``csrc/sigma_cap.cu`` lays it out."""
+
+    ctas: int
+    v_in_smem: bool
+    smem_bytes: int
+    at_once: int
+
+
+def sigma_cap_leaves(n: int, itemsize: int) -> int:
+    """K5's leaves a chunk (G): 16 float32 (8 where a row's tree has 256
+    leaves, 8 a lane), 4 float64."""
+    if itemsize != 4:
+        return 4
+    return 8 if tree_length(n) == 256 else 16
+
+
+def sigma_cap_smem(n: int, ctas: int, itemsize: int, v_in_smem: bool) -> int:
+    """The warps' copy rings (stages × 2 matrices × G leaves × 32 lanes),
+    v (2n values, if held), the wr, wi and |w|² of the CTA's ⌈n/ctas⌉
+    rows, the chain's ``ctas`` partial norms, and one value to broadcast
+    the norm."""
+    rows = -(-n // ctas)
+    ring = (SIGMA_CAP_WARPS * SIGMA_CAP_STAGES * 2
+            * sigma_cap_leaves(n, itemsize) * 32)
+    return itemsize * (ring + (2 * n if v_in_smem else 0) + 3 * rows
+                       + ctas + 1)
+
+
+def _sigma_cap_layout(n: int, ctas: int, itemsize: int):
+    """(v_in_smem, smem bytes) at ``ctas``: v in shared memory when it
+    fits, else read from L2; None if neither fits."""
+    for v_in_smem in (True, False):
+        smem = sigma_cap_smem(n, ctas, itemsize, v_in_smem)
+        if smem <= SIGMA_CAP_SMEM_MAX:
+            return v_in_smem, smem
+    return None
+
+
+def choose_sigma_cap_plan(B: int, n: int, itemsize: int,
+                          resident) -> SigmaCapPlan:
+    """K5's launch.  ``resident(v_in_smem, smem)`` is the number of CTAs
+    the card holds at once.  The most CTAs a chain, 128 down to 4 (at most
+    max(n, 4)), with which all B chains fit on the card at once; where
+    none does, ``SIGMA_CAP_WAVE_CTAS`` a chain and as many chains at a
+    time as fit, the rest in turn.  (On the card, ``chip_smoke.py``
+    ``kernel.sigma_cap``'s ``plans_ms``: the time falls with more CTAs a
+    chain while the batch fits at once.)"""
+    def fitting(ctas):
+        layout = _sigma_cap_layout(n, ctas, itemsize)
+        return layout, (0 if layout is None else resident(*layout))
+
+    for ctas in SIGMA_CAP_CTAS:
+        layout, room = fitting(ctas)
+        if layout is not None and ctas <= max(n, 4) and B * ctas <= room:
+            return SigmaCapPlan(ctas, *layout, B)
+    layout, room = fitting(SIGMA_CAP_WAVE_CTAS)
+    if layout is None or room < SIGMA_CAP_WAVE_CTAS:
+        raise ValueError(f"sigma_cap: no launch fits n = {n} "
+                         f"({itemsize}-byte values)")
+    return SigmaCapPlan(SIGMA_CAP_WAVE_CTAS, *layout,
+                        min(B, room // SIGMA_CAP_WAVE_CTAS))
+
+
+@functools.lru_cache(maxsize=64)
+def _sigma_cap_plan(B: int, n: int, dtype: torch.dtype) -> SigmaCapPlan:
+    query = getattr(_library(), f"dwh_sigma_cap_resident_{_suffix(dtype)}")
+    return choose_sigma_cap_plan(
+        B, n, dtype.itemsize, lambda v, smem: query(n, smem, int(v)))
+
+
+#: each device's barrier counters: zeros, which every launch leaves zero
+_SIGMA_CAP_COUNTERS: dict = {}
+
+
+def _sigma_cap_counters(dev: torch.device, B: int) -> torch.Tensor:
+    """2B zeroed counters (arrivals, departures) on ``dev``, made once and
+    grown as needed, so a call launches nothing but K5.  Calls on one
+    device share them, so they run in one stream's order."""
+    bar = _SIGMA_CAP_COUNTERS.get(dev)
+    if bar is None or bar.numel() < 2 * B:
+        bar = torch.zeros((2 * B,), dtype=torch.int32, device=dev)
+        _SIGMA_CAP_COUNTERS[dev] = bar
+    return bar
+
+
+def spectral_norm_est_cuda(sr, si, iters: int = 3, plan=None):
+    """Launch K5 on float32 or float64 CUDA tensors sr/si (B, n, n), any
+    n: σ (B,).  ``plan`` (a ``SigmaCapPlan``) overrides the chosen one."""
+    B, n = sr.shape[0], sr.shape[-1]
+    dev, dt = sr.device, sr.dtype
+    suffix = _suffix(dt)
+    for name, t in (("sr", sr), ("si", si)):
+        _check(name, t, (B, n, n), dev, dt)
+    if B == 0 or n == 0:
+        return torch.zeros((B,), dtype=dt, device=dev)
+    plan = plan or _sigma_cap_plan(B, n, dt)
+    sigma = torch.empty((B,), dtype=dt, device=dev)
+    vbuf = torch.empty((B, 2, n), dtype=dt, device=dev)
+    part = torch.empty((B, plan.ctas), dtype=dt, device=dev)
+    err = getattr(_library(), f"dwh_sigma_cap_{suffix}")(
+        sr.data_ptr(), si.data_ptr(), sigma.data_ptr(), vbuf.data_ptr(),
+        part.data_ptr(), _sigma_cap_counters(dev, B).data_ptr(), B, n,
+        plan.ctas, plan.at_once, int(iters), plan.smem_bytes,
+        int(plan.v_in_smem), _stream(dev))
+    _raise_on(err, "sigma_cap")
+    LAUNCHES["sigma_cap"] += 1
+    return sigma
+
+
+def spectral_norm_est(sr, si, iters: int = 3):
+    """K5 dispatch: σ_max(sr + i·si) per chain by power iteration, in one
+    order whatever the batch.  CPU tensors → plain version; CUDA tensors →
+    the kernel in their dtype (float32 or float64)."""
+    if sr.device.type == "cpu":
+        return spectral_norm_est_plain(sr, si, iters)
+    return spectral_norm_est_cuda(sr.contiguous(), si.contiguous(), iters)

@@ -9,10 +9,10 @@ rotations refine it:
     S = damped rotation generator from T  (kernel K1, ops/kernels.py)
     U ← orthonormalize(U·(I+S)) or U·(I+S+S²/2)   (Newton–Schulz)
 
-The σ-cap's power iteration runs its products and norms through K4 and K3
-(``ops/kernels.chain_matvec``, ``chain_sum``), which add in one order
-whatever the batch, so a chain's rotation does not depend on its
-neighbours in the batch.  ``tracked_eigh`` adds the per-chain residual
+The σ-cap's power iteration is one launch of K5
+(``ops/kernels.spectral_norm_est``), which adds in one order whatever the
+batch, so a chain's rotation does not depend on its neighbours in the
+batch.  ``tracked_eigh`` adds the per-chain residual
 check and the exact fallback; the leapfrog uses ``tracked_eigh_nofallback`` and re-anchors
 once per sweep instead.  Complex matrices are real (re, im) pairs.
 ``precision=None`` keeps the JAX package's 3-multiplication complex product
@@ -29,7 +29,7 @@ import torch
 
 from ..models.bdg_real import diagonalize_embedding
 from ..utils.precision import matmul_precision, product
-from .kernels import chain_matvec, chain_sum, rotation_s_parts
+from .kernels import chain_sum, rotation_s_parts, spectral_norm_est
 
 #: per-entry rotation cap (exact 2×2 Jacobi angle is ≤ π/4; damping keeps
 #: the simultaneous all-pairs update contractive)
@@ -43,20 +43,10 @@ def _eye(n, like):
 
 
 def _spectral_norm_est(sr, si, iters=3):
-    """Power-iteration estimate of σ_max(S) per chain, (B,).  The products
-    and the norms go through K4 and K3 (``ops/kernels``), whose order of
-    addition does not depend on the batch."""
-    B, n = sr.shape[0], sr.shape[-1]
-    vr = torch.full((B, n), 1.0, dtype=sr.dtype, device=sr.device) / (
-        torch.sqrt(torch.tensor(float(n), dtype=sr.dtype)).to(sr.device))
-    vi = torch.zeros_like(vr)
-
-    for _ in range(iters):
-        wr, wi = chain_matvec(sr, si, vr, vi)
-        nrm = torch.sqrt(chain_sum(wr * wr + wi * wi))[:, None] + 1e-30
-        vr, vi = wr / nrm, wi / nrm
-    wr, wi = chain_matvec(sr, si, vr, vi)
-    return torch.sqrt(chain_sum(wr * wr + wi * wi))
+    """Power-iteration estimate of σ_max(S) per chain, (B,): K5
+    (``ops/kernels.spectral_norm_est``), one launch on the card, whose
+    order of addition does not depend on the batch."""
+    return spectral_norm_est(sr, si, iters)
 
 
 def cmm(ar, ai, br, bi, precision=None):

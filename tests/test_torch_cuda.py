@@ -622,6 +622,64 @@ def test_chain_launchers_check_their_inputs(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# K5 at chip_smoke.py's shapes (the bench's 16×16/b8 and 24×24/b64, the
+# main path's 8 × 24×24, config 5's 32×32, 46×46 and 92×92) and small ones
+@pytest.mark.parametrize("dtype,B,n", [
+    (torch.float32, 8, 512), (torch.float32, 8, 1152),
+    (torch.float32, 64, 1152), (torch.float32, 2, 2048),
+    (torch.float32, 2, 4232), (torch.float64, 1, 8464)] + [
+    (dtype, B, n) for B, n in ((1, 1), (3, 5), (2, 300))
+    for dtype in (torch.float32, torch.float64)])
+def test_sigma_cap_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
+    a, b = _randn((B, n, n), dtype, cuda, 1), _randn((B, n, n), dtype, cuda,
+                                                     2)
+    sr, si = (a - a.mT) * 0.1, (b + b.mT) * 0.1
+    del a, b
+    before = kernels.LAUNCHES["sigma_cap"]
+    got = kernels.spectral_norm_est(sr, si)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sigma_cap"] == before + 1
+    assert got.dtype == dtype and got.shape == (B,)
+    assert torch.equal(got, kernels.spectral_norm_est_plain(sr, si))
+    k = max(1, B // 2)
+    assert torch.equal(kernels.spectral_norm_est(sr[:k], si[:k]), got[:k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sigma_cap_every_plan_is_bit_equal_to_plain(cuda, dtype):
+    """Every count of CTAs a chain (the chains in turns where the batch
+    does not fit at once), v in shared memory and in L2, and other
+    iteration counts give the plain version's bits."""
+    B, n = 3, 1000
+    a, b = _randn((B, n, n), dtype, cuda, 3), _randn((B, n, n), dtype, cuda,
+                                                     4)
+    sr, si = (a - a.mT) * 0.1, (b + b.mT) * 0.1
+    want = kernels.spectral_norm_est_plain(sr, si)
+    query = getattr(kernels._library(),
+                    f"dwh_sigma_cap_resident_{kernels._suffix(dtype)}")
+    for ctas in kernels.SIGMA_CAP_CTAS:
+        for v_in_smem in (True, False):
+            smem = kernels.sigma_cap_smem(n, ctas, dtype.itemsize, v_in_smem)
+            at_once = min(B, query(n, smem, int(v_in_smem)) // ctas)
+            assert at_once >= 1, (ctas, v_in_smem)
+            plan = kernels.SigmaCapPlan(ctas, v_in_smem, smem, at_once)
+            got = kernels.spectral_norm_est_cuda(sr, si, plan=plan)
+            assert torch.equal(got, want), plan
+    for iters in (0, 1, 5):
+        assert torch.equal(kernels.spectral_norm_est(sr, si, iters),
+                           kernels.spectral_norm_est_plain(sr, si, iters))
+
+
+def test_sigma_cap_launcher_checks_its_inputs(cuda):
+    x = _randn((2, 8, 8), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):
+        kernels.spectral_norm_est_cuda(x.half(), x.half())
+    with pytest.raises(ValueError):
+        kernels.spectral_norm_est_cuda(x.cpu(), x.cpu())
+    with pytest.raises(ValueError):
+        kernels.spectral_norm_est_cuda(x, x[:1])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_the_sweep_reductions_are_batch_invariant_on_the_card(cuda, dtype):
     """The σ-cap's estimate and the HMC energies give 2 chains alone the

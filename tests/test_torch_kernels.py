@@ -101,9 +101,11 @@ def test_cpu_dispatch_never_counts_a_launch():
     kernels.weighted_lorentzian_sum(omega, de, w2, 0.1)
     kernels.chain_sum(tr)
     kernels.chain_matvec(tr, ti, d, d)
+    kernels.spectral_norm_est(tr, ti)
     assert kernels.LAUNCHES == {"rotation_s_parts": 0,
                                 "weighted_lorentzian_sum": 0,
-                                "chain_sum": 0, "chain_matvec": 0}
+                                "chain_sum": 0, "chain_matvec": 0,
+                                "sigma_cap": 0}
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -117,6 +119,8 @@ def test_launchers_refuse_cpu_tensors():
         kernels.chain_sum_cuda(d)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.chain_matvec_cuda(tr, ti, d, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.spectral_norm_est_cuda(tr, ti)
 
 
 def test_build_names_its_files_per_process(tmp_path, monkeypatch):
