@@ -24,10 +24,14 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    batch's bits; times each beside its plain version and the one PyTorch
    call that computes the same function; then K5 ``spectral_norm_est``
    (``csrc/sigma_cap.cu``, the σ-cap's power iteration in one launch) at
-   the σ-cap's shapes from 8 × 512 to 1 × 8464 float64, bit-equal to its
-   plain version and block-alone invariant, timed beside the σ-cap as the
-   rotation ran it before (K4 and K3 launches, wall clock with its stream
-   sync), the library's iteration and two bounds (``kernel.sigma_cap``);
+   the σ-cap's shapes from 8 × 512 to 1 × 8464 float64 (the production
+   scan's 24 × 1152 among them), bit-equal to its plain version under its
+   own plan, each mode's plan and with −0.0 entries in S, block-alone
+   invariant, one device operation a call, each plan's mode, registers,
+   spills, shared memory and warps an SM printed, timed beside the σ-cap
+   as the rotation ran it before (K4 and K3 launches, wall clock with its
+   stream sync), the library's iteration and two bounds
+   (``kernel.sigma_cap``);
    times K1 alone at the bench's three shapes;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
@@ -568,10 +572,12 @@ def chain_kernel_phases(dev, power: str) -> dict:
 
 
 #: K5 (``csrc/sigma_cap.cu``) at the σ-cap's shapes: the bench's 16×16/b8,
-#: the main path's and 24×24/b64, config 5's 32×32 at 2 chains, 46×46 and
-#: float64 92×92: (chains, n, dtype, is the main path's)
+#: the main path's, the production scan's 24 chains and 24×24/b64, config
+#: 5's 32×32 at 2 chains, 46×46 and float64 8464: (chains, n, dtype, is the
+#: main path's)
 SIGMA_CASES = ((8, 512, "float32", False),
                (N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
+               (24, 2 * L_MAIN * L_MAIN, "float32", False),
                (64, 2 * L_MAIN * L_MAIN, "float32", False),
                (2, 2 * C5_L * C5_L, "float32", False),
                (2, 4232, "float32", False),
@@ -642,44 +648,72 @@ def _device_launches(fn) -> int:
 
 
 def _sigma_cap_plans(sr, si, want) -> dict:
-    """K5 at each of ``kernels.SIGMA_CAP_CTAS`` CTAs a chain, as many chains
-    at a time as the card holds (the rest in turn): bit-equal to ``want``
-    and the graph-replay ms (a comparison of the plans; the wrapper's own
-    choice is timed apart)."""
+    """K5 under the plan each mode the kernels are built for at n would
+    take, and with one CTA a chain (the chains in turns where the batch
+    does not fit at once): bit-equal to ``want``, the graph-replay ms, and
+    the kernel's registers, spills, shared memory and warps an SM (a
+    comparison of the plans; the wrapper's own choice is timed apart)."""
     from dwavehmc_tpu_torch.ops import kernels
 
     B, n, dt = sr.shape[0], sr.shape[-1], sr.dtype
-    query = getattr(kernels._library(),
-                    f"dwh_sigma_cap_resident_{kernels._suffix(dt)}")
+    query = kernels._resident_query(dt, n)
+    plans = []
+    for mode in kernels.SIGMA_CAP_MODES:
+        try:
+            plans.append(kernels.choose_sigma_cap_plan(
+                B, n, dt.itemsize, query, modes=(mode,)))
+        except ValueError:
+            continue
+    # the streamed plan with the L2 prefetch the other way round
+    plans += [p._replace(prefetch=not p.prefetch) for p in plans
+              if p.mode == "stream"]
+    smem = kernels.sigma_cap_smem(n, 1, dt.itemsize, "stream")
+    room = query("stream", smem) if smem <= kernels.SIGMA_CAP_SMEM_MAX else 0
+    if room >= 1:
+        plans.append(kernels.SigmaCapPlan(1, "stream", smem, min(B, room),
+                                          True))
     out = {}
-    for ctas in kernels.SIGMA_CAP_CTAS:
-        layout = kernels._sigma_cap_layout(n, ctas, dt.itemsize)
-        if layout is None or ctas > max(n, 4):
-            continue
-        at_once = min(B, query(n, layout[1], int(layout[0])) // ctas)
-        if at_once < 1:
-            continue
-        plan = kernels.SigmaCapPlan(ctas, *layout, at_once)
-
+    for plan in plans:
         def run(plan=plan):
             return kernels.spectral_norm_est_cuda(sr, si, plan=plan)
 
-        out[f"{ctas}x{at_once}"] = {
+        key = f"{plan.mode}:{plan.ctas}x{plan.at_once}"
+        out[key + (":prefetch" if plan.prefetch else "")] = {
             "bit_equal_plain": bool(torch.equal(run(), want)),
-            "ms": cuda_ms(run, 5, warmup=1, graph=True)}
+            "ms": cuda_ms(run, 5, warmup=1, graph=True),
+            **kernels.sigma_cap_info(n, dt, plan)}
     return out
 
 
+def _signed_zeros(sr, si):
+    """S with −0.0 entries: a diagonal of signed zeros as K1 writes it, a
+    row of −0.0 and a row of mixed ±0."""
+    n = sr.shape[-1]
+    g = torch.Generator(device=sr.device).manual_seed(7)
+    sign = torch.where(torch.rand(sr.shape[:-1], generator=g,
+                                  device=sr.device) < 0.5,
+                       -0.0, 0.0).to(sr.dtype)
+    sr, si = sr.clone(), si.clone()
+    sr.diagonal(dim1=-2, dim2=-1).copy_(sign)
+    si.diagonal(dim1=-2, dim2=-1).copy_(sign.flip(-1))
+    sr[:, 0] = -0.0
+    si[:, 0] = -0.0
+    sr[:, n // 2] = sign
+    return sr, si
+
+
 def sigma_cap_phase(dev, power: str) -> dict:
-    """K5 against its plain version at ``SIGMA_CASES`` (bit-equal, and a
+    """K5 against its plain version at ``SIGMA_CASES`` (bit-equal, also
+    under every mode's plan and on a copy of S with −0.0 entries, and a
     block of the batch alone gets the batch's bits), timed (CUDA-graph
     replay and eager) beside the σ-cap as the rotation called it before
     (wall clock per call, its stream sync included), the plain version,
     the library's iteration under graph replay, and two bounds: S read
-    once and four times (a pass each) at the card's memory rate.  The
-    kernels and copies each σ-cap puts on the card are counted with
-    ``torch.profiler`` at the main path's shape.  Inputs from a generator
-    of their own."""
+    once and four times (a pass each) at the card's memory rate.  Each
+    plan's mode, registers, spills, shared memory and warps an SM come
+    from the kernel's attributes and the residency query.  The kernels and
+    copies each σ-cap puts on the card are counted with ``torch.profiler``
+    at the main path's shape.  Inputs from a generator of their own."""
     from dwavehmc_tpu_torch.ops import kernels
 
     table = {}
@@ -705,7 +739,13 @@ def sigma_cap_phase(dev, power: str) -> dict:
         k = max(1, B // 2)
         invariant = bool(torch.equal(
             kernels.spectral_norm_est(sr[:k], si[:k]), got[:k]))
+        zr, zi = _signed_zeros(sr, si)
+        zeros_equal = bool(torch.equal(kernels.spectral_norm_est(zr, zi),
+                                       kernels.spectral_norm_est_plain(zr,
+                                                                       zi)))
+        del zr, zi
         plan = kernels._sigma_cap_plan(B, n, dt)
+        plan_info = kernels.sigma_cap_info(n, dt, plan)
         plans = _sigma_cap_plans(sr, si, want)
         ms = cuda_ms(lambda: kernels.spectral_norm_est(sr, si), 20,
                      graph=True)
@@ -733,9 +773,12 @@ def sigma_cap_phase(dev, power: str) -> dict:
                 "library": _device_launches(
                     lambda: _library_sigma_cap(torch.complex(sr, si)))}
             table["sigma_cap"] = row
+            check(launches["sigma_cap"] == 1, "sigma_cap put "
+                  f"{launches['sigma_cap']} operations on the card a call")
         emit({"phase": "kernel.sigma_cap", "shape": [B, n], "dtype": dtype,
-              "plan": plan._asdict(), "plans_ms": plans,
+              "plan": {**plan._asdict(), **plan_info}, "plans_ms": plans,
               "bit_equal_plain": bit_equal,
+              "signed_zeros_bit_equal_plain": zeros_equal,
               "block_alone_bit_equal": invariant,
               "old_sigma_cap_bit_equal_plain": old_equal,
               "library_max_abs_diff": lib_err, **row,
@@ -752,6 +795,8 @@ def sigma_cap_phase(dev, power: str) -> dict:
               f"plain version ({plans})")
         check(invariant, f"sigma_cap at {(B, n)} {dtype}: a block alone gets "
               "other bits than inside the batch")
+        check(zeros_equal, f"sigma_cap at {(B, n)} {dtype}: S with -0.0 "
+              "entries differs from the plain version")
         check(old_equal, f"sigma_cap at {(B, n)} {dtype}: the old σ-cap "
               "differs from the plain version")
         del sr, si, got, want, old

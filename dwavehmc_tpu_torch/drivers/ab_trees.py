@@ -3,7 +3,8 @@ card, in the order A, B, B, A, each run a process of its own started from
 its checkout's root.
 
     python -m dwavehmc_tpu_torch.drivers.ab_trees --base DIR
-        [--what ph_anchor,production,headline] [--out runs/ab_trees.json]
+        [--what ph_anchor,production,headline,sigma_cap]
+        [--out runs/ab_trees.json]
 
 A is this checkout, B the one at ``--base`` (for example the parent commit
 unpacked with ``git archive``).  Measurements:
@@ -19,7 +20,12 @@ unpacked with ``git archive``).  Measurements:
 - ``headline``: ``drivers/bench.bench`` with its ``tracked_fast`` mode
   alone at the defaults (16×16, 8 chains, 10 therm sweeps, a warm-up and
   3 timed segments of 20 sweeps; no ``eigh`` figures, no legs): its
-  traj/s.
+  traj/s;
+- ``sigma_cap``: K5 (``ops/kernels.spectral_norm_est``) at the σ-cap's
+  seven shapes (``AB_SIGMA_SHAPES``, default ``SIGMA_SHAPES``) on
+  ``chip_smoke.py``'s seeded S: the milliseconds of a call in 5 replays
+  of a CUDA graph of 20 calls (none on the CPU), the plan, whether σ
+  equals the plain version's bits, and a digest of σ's bits.
 
 ``production`` and ``headline`` also give a digest (SHA-256) of the dH
 bits of every segment the run made, in order, so that an A/B shows
@@ -119,14 +125,78 @@ print(json.dumps({"traj_per_sec": mode["traj_per_sec"],
 """
 
 
+#: K5's shapes: the 16×16/b8 headline, the main path, the scan's 24
+#: chains, the 24×24/b64 leg, config 5 at 2 chains, 46×46 and float64 8464
+SIGMA_SHAPES = ("8x512:float32,8x1152:float32,24x1152:float32,"
+                "64x1152:float32,2x2048:float32,2x4232:float32,"
+                "1x8464:float64")
+
+#: K5 at AB_SIGMA_SHAPES, timed by CUDA-graph replay, inside a checkout
+SIGMA_CAP = r"""
+import hashlib, json, os, statistics, torch
+from dwavehmc_tpu_torch.ops import kernels
+dev = torch.device(os.environ.get("AB_DEVICE", "cuda"))
+
+def replay_ms(fn, calls=20, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / calls)
+    return out
+
+gen = torch.Generator(device=dev).manual_seed(5)
+rows = []
+for item in os.environ["AB_SIGMA_SHAPES"].split(","):
+    shape, dtype = item.split(":")
+    B, n = (int(x) for x in shape.split("x"))
+    dt = getattr(torch, dtype)
+    a = torch.randn(B, n, n, generator=gen, device=dev, dtype=dt)
+    sr = (a - a.mT) * 0.01
+    a = torch.randn(B, n, n, generator=gen, device=dev, dtype=dt)
+    si = (a + a.mT) * 0.01
+    del a
+    got = kernels.spectral_norm_est(sr, si)
+    ms = (replay_ms(lambda: kernels.spectral_norm_est(sr, si))
+          if dev.type == "cuda" else None)
+    plan = (kernels._sigma_cap_plan(B, n, dt)._asdict()
+            if dev.type == "cuda" else None)
+    rows.append({"shape": [B, n], "dtype": dtype, "ms": ms,
+                 "ms_median": ms and statistics.median(ms), "plan": plan,
+                 "bit_equal_plain": bool(torch.equal(
+                     got, kernels.spectral_norm_est_plain(sr, si))),
+                 "sigma_digest": hashlib.sha256(
+                     got.cpu().numpy().tobytes()).hexdigest()})
+    del sr, si
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+print(json.dumps({"sigma_cap": rows}))
+"""
+
+
 def _run(tree: str, what: str, out_dir: str, tag: str,
          device: str = "cuda") -> dict:
     env = dict(os.environ, PYTHONPATH=tree, SKIP_QUICK_TESTS="1",
                AB_DEVICE=device)
+    env.setdefault("AB_SIGMA_SHAPES", SIGMA_SHAPES)
     if what == "ph_anchor":
         cmd = [sys.executable, "-c", PH_ANCHOR]
     elif what == "headline":
         cmd = [sys.executable, "-c", HEADLINE]
+    elif what == "sigma_cap":
+        cmd = [sys.executable, "-c", SIGMA_CAP]
     else:
         # the trace (hundreds of MB at 64 chains) stays under build/
         cmd = [sys.executable, "-c", PRODUCTION,
@@ -150,6 +220,9 @@ def ab(base: str, whats: list, out_dir: str, device: str = "cuda") -> dict:
             if what == "ph_anchor":
                 val = [(r["seed"], r["fell_back"], r["rescued"],
                         r["ms_median"]) for r in res["ph_anchor"]]
+            elif what == "sigma_cap":
+                val = [(r["shape"], r["ms_median"], r["bit_equal_plain"],
+                        r["sigma_digest"]) for r in res["sigma_cap"]]
             else:
                 val = (res["traj_per_sec"], res["dH_digest"])
             out["summary"].setdefault(what, {}).setdefault(side, []).append(
@@ -162,10 +235,12 @@ def ab(base: str, whats: list, out_dir: str, device: str = "cuda") -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--base", required=True)
-    p.add_argument("--what", default="ph_anchor,production,headline")
+    p.add_argument("--what",
+                   default="ph_anchor,production,headline,sigma_cap")
     p.add_argument("--out", default=os.path.join("runs", "ab_trees.json"))
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="production and headline (ph_anchor: the card)")
+                   help="production, headline and sigma_cap (ph_anchor: "
+                   "the card)")
     ns = p.parse_args(argv)
     out_dir = os.path.dirname(os.path.abspath(ns.out))
     os.makedirs(out_dir, exist_ok=True)

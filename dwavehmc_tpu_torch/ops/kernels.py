@@ -25,8 +25,11 @@ batched matrix-vector product pick their order of addition by the batch's
 size.  Both add in one halving tree (``csrc/chain_sum.cu``), and their plain
 versions run the same tree, so kernel and plain version agree to the bit.
 K5 runs the σ-cap of a tracked rotation (3 power iterations and a last
-product) in those trees in one launch, bit-equal to its plain version, the
-composition of K4's and K3's plain versions that the σ-cap ran before it.
+product) in those trees in one launch, each tree folded past the levels
+that add only padding, and σ bit-equal to its plain version, the
+composition of K4's and K3's plain versions that the σ-cap ran before it
+(``csrc/sigma_cap.cu``: why the fold keeps σ's bits; its float64 entries
+are ``sigma_cap_f64.cu``, the same file compiled for double).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into one
 shared library under ``build/kernels/`` beside the package (one ``nvcc -c``
@@ -59,7 +62,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu", "sigma_cap.cu")
+SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu", "sigma_cap.cu",
+           "sigma_cap_f64.cu")
 #: headers the sources include (part of the build's key)
 HEADERS = ("halving_tree.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -160,11 +164,14 @@ def _load(path: Path):
         getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, p]
         getattr(lib, name).restype = i
     for name in ("dwh_sigma_cap_f32", "dwh_sigma_cap_f64"):
-        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+        getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                        p]
         getattr(lib, name).restype = i
     for name in ("dwh_sigma_cap_resident_f32", "dwh_sigma_cap_resident_f64"):
         getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = i
+    for name in ("dwh_sigma_cap_attrs_f32", "dwh_sigma_cap_attrs_f64"):
+        getattr(lib, name).argtypes = [i, i, i, p]
         getattr(lib, name).restype = i
     return lib
 
@@ -489,86 +496,141 @@ def spectral_norm_est_plain(sr, si, iters: int = 3):
 
 #: shared memory a block may use on Hopper (``csrc/sigma_cap.cu``)
 SIGMA_CAP_SMEM_MAX = 232448
-#: CTAs a chain, most preferred first
-SIGMA_CAP_CTAS = (128, 64, 32, 16, 8, 4)
-#: CTAs a chain when the batch does not fit on the card at once
-SIGMA_CAP_WAVE_CTAS = 16
-#: a K5 CTA's warps, and the chunks in each warp's copy ring
-SIGMA_CAP_WARPS, SIGMA_CAP_STAGES = 8, 3
+#: K5's modes, most preferred first, and their numbers in
+#: ``csrc/sigma_cap.cu``: ``on_chip`` keeps a CTA's rows of S in its shared
+#: memory after pass 0 (every chain at once); ``stream`` reads S from device
+#: memory every pass, v in shared memory; ``v_in_l2`` streams S and reads v
+#: from L2 (rows too long for v in shared memory)
+SIGMA_CAP_MODES = {"on_chip": 1, "stream": 0, "v_in_l2": 2}
+#: the longest rows each mode's kernels are built for: log2 of a lane's
+#: leaves (``sigma_cap_lq``)
+SIGMA_CAP_MAX_LQ = {"on_chip": 5, "stream": 10, "v_in_l2": 10}
+#: a K5 CTA's warps (128 registers a thread, one CTA an SM)
+SIGMA_CAP_WARPS = 16
+#: rows a warp streams a pass from which each row is first streamed into L2
+#: in one bulk copy (fewer rows: the copies of all warps' rows at once
+#: overrun L2; ``chip_smoke.py`` ``kernel.sigma_cap``'s ``plans_ms``)
+SIGMA_CAP_PREFETCH_ROWS = 8
+
+
+def fold_length(n: int, least: int) -> int:
+    """The largest power of two ≤ n, and at least ``least``: the length of
+    the halving tree after its levels that add only padding and its one
+    partial level (``csrc/sigma_cap.cu``)."""
+    h = least
+    while 2 * h <= n:
+        h *= 2
+    return h
+
+
+def sigma_cap_lq(n: int) -> int:
+    """log2 of the leaves each lane walks in a row of n: the row's folded
+    tree has ``fold_length(n, 32)`` leaves over 32 lanes."""
+    return (fold_length(n, 32) // 32).bit_length() - 1
+
+
+def sigma_cap_smem(n: int, ctas: int, itemsize: int, mode: str) -> int:
+    """A CTA's shared memory: v as pairs (2n values, unless ``v_in_l2``),
+    the norm's ``fold_length(n, 64) / 2`` values and one to broadcast it,
+    and ``on_chip``'s ⌈n / ctas⌉ rows of sr and of si."""
+    values = (0 if mode == "v_in_l2" else 2 * n) + fold_length(n, 64) // 2 + 1
+    if mode == "on_chip":
+        values += 2 * -(-n // ctas) * n
+    return itemsize * values
 
 
 class SigmaCapPlan(NamedTuple):
     """K5's launch: one cooperative launch of ``ctas`` CTAs per chain,
-    ``at_once`` chains at a time (the others in turn); v in each CTA's
-    shared memory (``v_in_smem``) or read from L2; ``smem_bytes`` of
-    dynamic shared memory a CTA, as ``csrc/sigma_cap.cu`` lays it out."""
+    ``at_once`` chains at a time (the others in turn), in ``mode`` (a key
+    of ``SIGMA_CAP_MODES``), with ``smem_bytes`` of dynamic shared memory a
+    CTA, as ``csrc/sigma_cap.cu`` lays it out; ``prefetch`` streams each
+    row into L2 in one bulk copy as a warp starts it."""
 
     ctas: int
-    v_in_smem: bool
+    mode: str
     smem_bytes: int
     at_once: int
+    prefetch: bool = False
 
 
-def sigma_cap_leaves(n: int, itemsize: int) -> int:
-    """K5's leaves a chunk (G): 16 float32 (8 where a row's tree has 256
-    leaves, 8 a lane), 4 float64."""
-    if itemsize != 4:
-        return 4
-    return 8 if tree_length(n) == 256 else 16
-
-
-def sigma_cap_smem(n: int, ctas: int, itemsize: int, v_in_smem: bool) -> int:
-    """The warps' copy rings (stages × 2 matrices × G leaves × 32 lanes),
-    v (2n values, if held), the wr, wi and |w|² of the CTA's ⌈n/ctas⌉
-    rows, the chain's ``ctas`` partial norms, and one value to broadcast
-    the norm."""
+def sigma_cap_prefetch(n: int, ctas: int, mode: str) -> bool:
+    """Whether a warp streams enough rows a pass for the L2 prefetch
+    (``SIGMA_CAP_PREFETCH_ROWS``); the on-chip mode reads S once."""
     rows = -(-n // ctas)
-    ring = (SIGMA_CAP_WARPS * SIGMA_CAP_STAGES * 2
-            * sigma_cap_leaves(n, itemsize) * 32)
-    return itemsize * (ring + (2 * n if v_in_smem else 0) + 3 * rows
-                       + ctas + 1)
+    return (mode != "on_chip"
+            and -(-rows // SIGMA_CAP_WARPS) >= SIGMA_CAP_PREFETCH_ROWS)
 
 
-def _sigma_cap_layout(n: int, ctas: int, itemsize: int):
-    """(v_in_smem, smem bytes) at ``ctas``: v in shared memory when it
-    fits, else read from L2; None if neither fits."""
-    for v_in_smem in (True, False):
-        smem = sigma_cap_smem(n, ctas, itemsize, v_in_smem)
-        if smem <= SIGMA_CAP_SMEM_MAX:
-            return v_in_smem, smem
-    return None
+def choose_sigma_cap_plan(B: int, n: int, itemsize: int, resident,
+                          modes=tuple(SIGMA_CAP_MODES)) -> SigmaCapPlan:
+    """K5's launch.  ``resident(mode, smem)`` is the number of CTAs the card
+    holds at once.  ``on_chip`` where every chain fits at once with its
+    rows in the CTAs' shared memory, at the most CTAs a chain that does;
+    else ``stream`` (``v_in_l2`` where v does not fit) at the most CTAs a
+    chain, at most n, with which the batch fits at once, or one CTA a chain
+    and the chains in turns; the L2 prefetch where a warp streams enough
+    rows (``sigma_cap_prefetch``).  ``modes`` narrows the choice (the
+    card's comparisons of the modes).  A CTA's warps per SM come from the
+    residency (``sigma_cap_info``)."""
+    lq = sigma_cap_lq(n)
+    for mode in modes:
+        if lq > SIGMA_CAP_MAX_LQ[mode]:
+            continue
+
+        def fit(ctas, mode=mode):
+            smem = sigma_cap_smem(n, ctas, itemsize, mode)
+            room = resident(mode, smem) if smem <= SIGMA_CAP_SMEM_MAX else 0
+            return smem, room
+
+        if mode == "on_chip":
+            # more CTAs a chain take fewer rows each: start where one row a
+            # CTA would fit
+            ctas = min(n, fit(n)[1] // B)
+            while ctas >= 1:
+                smem, room = fit(ctas)
+                if smem > SIGMA_CAP_SMEM_MAX:
+                    break
+                if B * ctas <= room:
+                    return SigmaCapPlan(ctas, mode, smem, B, False)
+                ctas -= 1
+            continue
+        smem, room = fit(1)
+        if room >= 1:
+            ctas = max(1, min(n, room // B))
+            return SigmaCapPlan(ctas, mode, smem, min(B, room // ctas),
+                                sigma_cap_prefetch(n, ctas, mode))
+    raise ValueError(f"sigma_cap: no launch fits n = {n} "
+                     f"({itemsize}-byte values)")
 
 
-def choose_sigma_cap_plan(B: int, n: int, itemsize: int,
-                          resident) -> SigmaCapPlan:
-    """K5's launch.  ``resident(v_in_smem, smem)`` is the number of CTAs
-    the card holds at once.  The most CTAs a chain, 128 down to 4 (at most
-    max(n, 4)), with which all B chains fit on the card at once; where
-    none does, ``SIGMA_CAP_WAVE_CTAS`` a chain and as many chains at a
-    time as fit, the rest in turn.  (On the card, ``chip_smoke.py``
-    ``kernel.sigma_cap``'s ``plans_ms``: the time falls with more CTAs a
-    chain while the batch fits at once.)"""
-    def fitting(ctas):
-        layout = _sigma_cap_layout(n, ctas, itemsize)
-        return layout, (0 if layout is None else resident(*layout))
-
-    for ctas in SIGMA_CAP_CTAS:
-        layout, room = fitting(ctas)
-        if layout is not None and ctas <= max(n, 4) and B * ctas <= room:
-            return SigmaCapPlan(ctas, *layout, B)
-    layout, room = fitting(SIGMA_CAP_WAVE_CTAS)
-    if layout is None or room < SIGMA_CAP_WAVE_CTAS:
-        raise ValueError(f"sigma_cap: no launch fits n = {n} "
-                         f"({itemsize}-byte values)")
-    return SigmaCapPlan(SIGMA_CAP_WAVE_CTAS, *layout,
-                        min(B, room // SIGMA_CAP_WAVE_CTAS))
+def _resident_query(dtype: torch.dtype, n: int):
+    query = getattr(_library(), f"dwh_sigma_cap_resident_{_suffix(dtype)}")
+    return lambda mode, smem: query(n, smem, SIGMA_CAP_MODES[mode])
 
 
 @functools.lru_cache(maxsize=64)
 def _sigma_cap_plan(B: int, n: int, dtype: torch.dtype) -> SigmaCapPlan:
-    query = getattr(_library(), f"dwh_sigma_cap_resident_{_suffix(dtype)}")
-    return choose_sigma_cap_plan(
-        B, n, dtype.itemsize, lambda v, smem: query(n, smem, int(v)))
+    return choose_sigma_cap_plan(B, n, dtype.itemsize,
+                                 _resident_query(dtype, n))
+
+
+def sigma_cap_info(n: int, dtype: torch.dtype, plan: SigmaCapPlan) -> dict:
+    """The card's figures for ``plan``'s kernel at n: the rows' flavor
+    (``sparse``: the partial level's partners in a few slots of a load, or
+    none; ``dense``: anywhere), registers and spilled bytes a thread,
+    threads a CTA, CTAs and warps an SM at its shared memory, and the
+    card's SMs."""
+    out = (ctypes.c_int * 6)()
+    err = getattr(_library(), f"dwh_sigma_cap_attrs_{_suffix(dtype)}")(
+        n, plan.smem_bytes, SIGMA_CAP_MODES[plan.mode], out)
+    _raise_on(err, "sigma_cap attributes")
+    regs, spill, threads, per_sm, sms, flavor = out
+    return {"mode": plan.mode, "prefetch": plan.prefetch,
+            "rows": ("sparse", "dense")[flavor],
+            "registers": regs, "spill_bytes": spill,
+            "smem_bytes": plan.smem_bytes, "threads": threads,
+            "ctas_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32,
+            "sms": sms}
 
 
 #: each device's barrier counters: zeros, which every launch leaves zero
@@ -576,19 +638,20 @@ _SIGMA_CAP_COUNTERS: dict = {}
 
 
 def _sigma_cap_counters(dev: torch.device, B: int) -> torch.Tensor:
-    """2B zeroed counters (arrivals, departures) on ``dev``, made once and
-    grown as needed, so a call launches nothing but K5.  Calls on one
-    device share them, so they run in one stream's order."""
+    """B zeroed counters (one a chain) on ``dev``, made once and grown as
+    needed, so a call launches nothing but K5.  Calls on one device share
+    them, so they run in one stream's order."""
     bar = _SIGMA_CAP_COUNTERS.get(dev)
-    if bar is None or bar.numel() < 2 * B:
-        bar = torch.zeros((2 * B,), dtype=torch.int32, device=dev)
+    if bar is None or bar.numel() < B:
+        bar = torch.zeros((B,), dtype=torch.int32, device=dev)
         _SIGMA_CAP_COUNTERS[dev] = bar
     return bar
 
 
 def spectral_norm_est_cuda(sr, si, iters: int = 3, plan=None):
-    """Launch K5 on float32 or float64 CUDA tensors sr/si (B, n, n), any
-    n: σ (B,).  ``plan`` (a ``SigmaCapPlan``) overrides the chosen one."""
+    """Launch K5 on float32 or float64 CUDA tensors sr/si (B, n, n), n up
+    to 65535: σ (B,).  ``plan`` (a ``SigmaCapPlan``) overrides the chosen
+    one."""
     B, n = sr.shape[0], sr.shape[-1]
     dev, dt = sr.device, sr.dtype
     suffix = _suffix(dt)
@@ -598,13 +661,12 @@ def spectral_norm_est_cuda(sr, si, iters: int = 3, plan=None):
         return torch.zeros((B,), dtype=dt, device=dev)
     plan = plan or _sigma_cap_plan(B, n, dt)
     sigma = torch.empty((B,), dtype=dt, device=dev)
-    vbuf = torch.empty((B, 2, n), dtype=dt, device=dev)
-    part = torch.empty((B, plan.ctas), dtype=dt, device=dev)
+    wbuf = torch.empty((2, B, 2, n), dtype=dt, device=dev)
     err = getattr(_library(), f"dwh_sigma_cap_{suffix}")(
-        sr.data_ptr(), si.data_ptr(), sigma.data_ptr(), vbuf.data_ptr(),
-        part.data_ptr(), _sigma_cap_counters(dev, B).data_ptr(), B, n,
-        plan.ctas, plan.at_once, int(iters), plan.smem_bytes,
-        int(plan.v_in_smem), _stream(dev))
+        sr.data_ptr(), si.data_ptr(), sigma.data_ptr(), wbuf.data_ptr(),
+        _sigma_cap_counters(dev, B).data_ptr(), B, n, plan.ctas,
+        plan.at_once, int(iters), plan.smem_bytes,
+        SIGMA_CAP_MODES[plan.mode], int(plan.prefetch), _stream(dev))
     _raise_on(err, "sigma_cap")
     LAUNCHES["sigma_cap"] += 1
     return sigma

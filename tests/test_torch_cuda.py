@@ -623,12 +623,14 @@ def test_chain_launchers_check_their_inputs(cuda):
 
 
 # K5 at chip_smoke.py's shapes (the bench's 16×16/b8 and 24×24/b64, the
-# main path's 8 × 24×24, config 5's 32×32, 46×46 and 92×92) and small ones
+# main path's 8 × 24×24, the scan's 24 chains of 24×24, config 5's 32×32,
+# 46×46 and float64 8464) and small ones (the graft entry's 4×4 and 8×8)
 @pytest.mark.parametrize("dtype,B,n", [
     (torch.float32, 8, 512), (torch.float32, 8, 1152),
-    (torch.float32, 64, 1152), (torch.float32, 2, 2048),
-    (torch.float32, 2, 4232), (torch.float64, 1, 8464)] + [
-    (dtype, B, n) for B, n in ((1, 1), (3, 5), (2, 300))
+    (torch.float32, 24, 1152), (torch.float32, 64, 1152),
+    (torch.float32, 2, 2048), (torch.float32, 2, 4232),
+    (torch.float64, 1, 8464)] + [
+    (dtype, B, n) for B, n in ((1, 1), (3, 5), (2, 32), (2, 128), (2, 300))
     for dtype in (torch.float32, torch.float64)])
 def test_sigma_cap_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
     a, b = _randn((B, n, n), dtype, cuda, 1), _randn((B, n, n), dtype, cuda,
@@ -645,29 +647,83 @@ def test_sigma_cap_kernel_is_bit_equal_to_plain(cuda, dtype, B, n):
     assert torch.equal(kernels.spectral_norm_est(sr[:k], si[:k]), got[:k])
 
 
+def _sigma_cap_plans(B, n, dtype):
+    """A plan of every mode the kernels are built for at n, at counts of
+    CTAs a chain from one to 100 (most not powers of two), as many chains
+    at a time as fit, with and without the L2 prefetch."""
+    query = kernels._resident_query(dtype, n)
+    plans = []
+    for mode, most_lq in kernels.SIGMA_CAP_MAX_LQ.items():
+        if kernels.sigma_cap_lq(n) > most_lq:
+            continue
+        for ctas in (1, 3, 7, 16, 33, 100):
+            smem = kernels.sigma_cap_smem(n, ctas, dtype.itemsize, mode)
+            room = (query(mode, smem)
+                    if smem <= kernels.SIGMA_CAP_SMEM_MAX else 0)
+            if ctas <= n and room >= ctas:
+                for prefetch in ((False,) if mode == "on_chip"
+                                 else (False, True)):
+                    plans.append(kernels.SigmaCapPlan(
+                        ctas, mode, smem, min(B, room // ctas), prefetch))
+    return plans
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sigma_cap_every_plan_is_bit_equal_to_plain(cuda, dtype):
-    """Every count of CTAs a chain (the chains in turns where the batch
-    does not fit at once), v in shared memory and in L2, and other
-    iteration counts give the plain version's bits."""
+    """Every mode (S on chip, streamed, v from L2), counts of CTAs a chain
+    that are not powers of two, the chains in turns, the L2 prefetch, and
+    other iteration counts give the plain version's bits, for rows of
+    each flavor: partners anywhere (n = 1000), none (512, a power of two)
+    and in a few slots of a load (300)."""
     B, n = 3, 1000
     a, b = _randn((B, n, n), dtype, cuda, 3), _randn((B, n, n), dtype, cuda,
                                                      4)
     sr, si = (a - a.mT) * 0.1, (b + b.mT) * 0.1
     want = kernels.spectral_norm_est_plain(sr, si)
-    query = getattr(kernels._library(),
-                    f"dwh_sigma_cap_resident_{kernels._suffix(dtype)}")
-    for ctas in kernels.SIGMA_CAP_CTAS:
-        for v_in_smem in (True, False):
-            smem = kernels.sigma_cap_smem(n, ctas, dtype.itemsize, v_in_smem)
-            at_once = min(B, query(n, smem, int(v_in_smem)) // ctas)
-            assert at_once >= 1, (ctas, v_in_smem)
-            plan = kernels.SigmaCapPlan(ctas, v_in_smem, smem, at_once)
-            got = kernels.spectral_norm_est_cuda(sr, si, plan=plan)
-            assert torch.equal(got, want), plan
+    plans = _sigma_cap_plans(B, n, dtype)
+    for plan in plans + [kernels.SigmaCapPlan(
+            3, "stream", kernels.sigma_cap_smem(n, 3, dtype.itemsize,
+                                                "stream"), 1)]:
+        got = kernels.spectral_norm_est_cuda(sr, si, plan=plan)
+        assert torch.equal(got, want), plan
     for iters in (0, 1, 5):
         assert torch.equal(kernels.spectral_norm_est(sr, si, iters),
                            kernels.spectral_norm_est_plain(sr, si, iters))
+    modes = {p.mode for p in plans}
+    for m in (512, 300):
+        sr, si = sr[:, :m, :m].contiguous(), si[:, :m, :m].contiguous()
+        want = kernels.spectral_norm_est_plain(sr, si)
+        for plan in _sigma_cap_plans(B, m, dtype):
+            modes.add(plan.mode)
+            assert torch.equal(kernels.spectral_norm_est_cuda(sr, si,
+                                                              plan=plan),
+                               want), plan
+    assert modes == set(kernels.SIGMA_CAP_MODES)
+
+
+@pytest.mark.parametrize("dtype,B,n", [
+    (torch.float32, 8, 512), (torch.float32, 3, 1152),
+    (torch.float64, 2, 72), (torch.float32, 2, 32)])
+def test_sigma_cap_signed_zeros_are_bit_equal_to_plain(cuda, dtype, B, n):
+    """S with −0.0 entries (a diagonal of signed zeros as K1 writes it, a
+    row of −0.0, a row of mixed ±0): the fold skips levels that add +0,
+    which can change only the sign of a zero w_i, so σ keeps its bits, in
+    every mode."""
+    a, b = _randn((B, n, n), dtype, cuda, 5), _randn((B, n, n), dtype, cuda,
+                                                     6)
+    sr, si = (a - a.mT) * 0.1, (b + b.mT) * 0.1
+    sign = torch.where(_randn((B, n), dtype, cuda, 7) < 0, -0.0, 0.0).to(
+        dtype)
+    sr.diagonal(dim1=-2, dim2=-1).copy_(sign)
+    si.diagonal(dim1=-2, dim2=-1).copy_(sign.flip(-1))
+    sr[:, 0] = -0.0
+    si[:, 0] = -0.0
+    sr[:, n // 2] = sign
+    want = kernels.spectral_norm_est_plain(sr, si)
+    assert torch.equal(kernels.spectral_norm_est(sr, si), want)
+    for plan in _sigma_cap_plans(B, n, dtype):
+        assert torch.equal(kernels.spectral_norm_est_cuda(sr, si, plan=plan),
+                           want), plan
 
 
 def test_sigma_cap_launcher_checks_its_inputs(cuda):

@@ -7,13 +7,16 @@
 * a block of the batch alone gets the bits it gets inside the batch;
 * the dispatcher sends CPU tensors to the plain version and counts no
   launch;
-* a model of the kernel's order of additions (a warp per row, each lane
-  folding its leaves in bit-reversed order, G a load, then the lane
-  shuffles; the norm split over the chain's CTAs by the rows' low bits)
-  gives the plain version's bits, at every count of CTAs a chain;
-* the launch plan: the most CTAs a chain with which the batch fits on the
-  card at once, else the chains in turns; v in shared memory when it
-  fits.
+* a model of the kernel's order of additions (each tree folded to the
+  largest power of two ≤ n after its one partial level, a warp per row,
+  each lane folding its leaves in bit-reversed order, G a load, then the
+  lane shuffles; the norm over all of w, as every CTA adds it after the
+  pass's one barrier) gives the plain version's bits, also where S holds
+  −0.0 entries, and a wrong order does not;
+* the launch plan: S kept in the CTAs' shared memory where every chain
+  fits at once with its rows, else streamed at the most CTAs a chain with
+  which the batch fits at once (v read from L2 where it does not fit in
+  shared memory), else the chains in turns.
 
 The kernel itself runs on the card only (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` ``kernel.sigma_cap``).
@@ -81,26 +84,38 @@ def _bitrev(u: int, bits: int) -> int:
     return int(format(u, f"0{bits}b")[::-1], 2) if bits else 0
 
 
+def _fold(x, least: int):
+    """x (…, n) on the H = ``kernels.fold_length(n, least)`` leaves of its
+    folded tree: x[i] + x[i + H] for i < n − H (the plain tree's one
+    partial level; the levels above it add padding), zeros past n."""
+    n = x.shape[-1]
+    H = kernels.fold_length(n, least)
+    y = torch.nn.functional.pad(x, (0, max(0, H - n)))[..., :H].clone()
+    if n > H:
+        y[..., :n - H] = y[..., :n - H] + x[..., H:]
+    return y
+
+
 def _row_sums(x, G: int):
     """Σ over the last axis of x (…, n) as a warp of ``csrc/sigma_cap.cu``
-    adds a row: lane l holds x[l + 32 q]; it walks q in bit-reversed
-    order, G leaves a chunk added as adjacent pairs, the chunks' sums
-    merged by a binary counter; then the halving tree over the 32 lanes."""
-    n = x.shape[-1]
-    P = kernels.tree_length(n)
-    Q = P // 32
+    adds a row: the folded tree's leaves, lane l holding leaf l + 32 q; it
+    walks q in bit-reversed order, G leaves a chunk added as adjacent
+    pairs, the chunks' sums merged by a binary counter; then the halving
+    tree over the 32 lanes."""
+    y = _fold(x, 32)
+    Q = y.shape[-1] // 32
     lq = Q.bit_length() - 1
-    padded = torch.nn.functional.pad(x, (0, P - n)).reshape(
-        *x.shape[:-1], Q, 32)
+    G = min(G, Q)
+    leaves = y.reshape(*x.shape[:-1], Q, 32)
     stack, s = {}, None
     for c in range(Q // G):
-        y = [padded[..., _bitrev(c * G + g, lq), :] for g in range(G)]
+        z = [leaves[..., _bitrev(c * G + g, lq), :] for g in range(G)]
         w = 1
         while w < G:
             for j in range(0, G, 2 * w):
-                y[j] = y[j] + y[j + w]
+                z[j] = z[j] + z[j + w]
             w *= 2
-        s, level = y[0], 0
+        s, level = z[0], 0
         while (c >> level) & 1:
             s = stack.pop(level) + s
             level += 1
@@ -111,35 +126,23 @@ def _row_sums(x, G: int):
     return s[..., 0]
 
 
-def _chain_norm(q, ctas: int):
-    """Σ_i q_i (q (B, n) ≥ 0) as the kernel's CTAs add it: CTA r holds
-    the rows i = r + ctas·k, adds them in a halving tree over k whose slots
-    past its rows are skipped, and the CTAs' partials go through the
-    halving tree over r."""
-    B, n = q.shape
-    M = -(-n // ctas)
-    parts = []
-    for r in range(ctas):
-        loc = q[:, r::ctas].clone()
-        live = loc.shape[-1]
-        h = 1
-        while h < M:
-            h *= 2
-        h //= 2
-        while h >= 1:
-            m = max(0, min(h, live - h))
-            loc[:, :m] = loc[:, :m] + loc[:, h:h + m]
-            live = min(live, h)
-            h //= 2
-        parts.append(loc[:, 0] if loc.shape[-1] else torch.zeros_like(q[:, 0]))
-    p = torch.stack(parts, dim=-1)
-    while p.shape[-1] > 1:
-        h = p.shape[-1] // 2
-        p = p[..., :h] + p[..., h:]
-    return p[..., 0]
+def _chain_norm(q):
+    """Σ_i q_i (q (B, n) ≥ 0) as every CTA of a chain adds it: the folded
+    tree over ``fold_length(n, 64)`` leaves, its top level as the terms are
+    read, the levels down to 32 in shared memory, the last five shuffles
+    (one halving tree)."""
+    y = _fold(q, 64)
+    h = y.shape[-1] // 2
+    z = y[..., :h] + y[..., h:]
+    while z.shape[-1] > 1:
+        h = z.shape[-1] // 2
+        z = z[..., :h] + z[..., h:]
+    return z[..., 0]
 
 
-def _kernel_model(sr, si, iters: int, ctas: int, G: int):
+def _kernel_model(sr, si, iters: int, G: int):
+    """K5's passes: each row's four trees, w = (rr − ii, ri + ir) published
+    unnormalized, then every CTA's norm over all of w and v = w / nrm."""
     B, n = sr.shape[0], sr.shape[-1]
     root_n = torch.sqrt(torch.full((), float(n), dtype=sr.dtype))
     vr = torch.full((B, n), 1.0, dtype=sr.dtype) / root_n
@@ -148,95 +151,199 @@ def _kernel_model(sr, si, iters: int, ctas: int, G: int):
         r, i = vr[:, None, :], vi[:, None, :]
         wr = _row_sums(sr * r, G) - _row_sums(si * i, G)
         wi = _row_sums(sr * i, G) + _row_sums(si * r, G)
-        s = _chain_norm(wr * wr + wi * wi, ctas)
+        s = _chain_norm(wr * wr + wi * wi)
         if p == iters:
             return torch.sqrt(s)
         nrm = torch.sqrt(s)[:, None] + 1e-30
         vr, vi = wr / nrm, wi / nrm
 
 
-# the kernel's chunks: 16 float32 leaves (8 where a lane has 8), 4 float64
+def _with_signed_zeros(sr, si, seed: int):
+    """S with −0.0 entries: a zero diagonal of mixed signs (K1 writes its
+    diagonal as a product with 0), a row of −0.0 and a row of mixed ±0."""
+    n = sr.shape[-1]
+    g = torch.Generator().manual_seed(seed)
+    sign = torch.where(torch.rand(sr.shape[:-1], generator=g) < 0.5,
+                       -0.0, 0.0).to(sr.dtype)
+    sr, si = sr.clone(), si.clone()
+    sr.diagonal(dim1=-2, dim2=-1).copy_(sign)
+    si.diagonal(dim1=-2, dim2=-1).copy_(sign.flip(-1))
+    sr[:, 0] = -0.0
+    si[:, 0] = -0.0
+    sr[:, n // 2] = sign
+    si[:, n // 2] = -0.0
+    return sr, si
+
+
+# the kernel's loads: 16 float32 leaves, 8 float64 (4 where partners fall
+# anywhere), and other splits of the same walk
 @pytest.mark.parametrize("n,dtype,G", [
-    (n, dtype, G) for n in (5, 33, 257, 1152)
-    for dtype, G in ((torch.float32, 16), (torch.float32, 8),
-                     (torch.float64, 4))
-    if kernels.tree_length(n) // 32 >= G])
-@pytest.mark.parametrize("ctas", [1, 4, 16, 128])
-def test_the_kernels_order_is_the_plain_versions(n, ctas, dtype, G):
+    (n, dtype, G) for n in (32, 72, 257, 300, 513, 1000, 1152)
+    for dtype, G in ((torch.float32, 32), (torch.float32, 16),
+                     (torch.float64, 8), (torch.float64, 4))])
+@pytest.mark.parametrize("zeros", [False, True])
+def test_the_kernels_order_is_the_plain_versions(n, zeros, dtype, G):
     sr, si = _generator(2, n, dtype, seed=3, scale=30.0)
-    assert torch.equal(_kernel_model(sr, si, 3, ctas, G),
+    if zeros:
+        sr, si = _with_signed_zeros(sr, si, seed=n)
+        assert bool((torch.signbit(sr) & (sr == 0)).any())
+    assert torch.equal(_kernel_model(sr, si, 3, G),
                        kernels.spectral_norm_est_plain(sr, si))
 
 
 def test_the_model_sees_the_walk_order():
-    """Without the bit reversal the lanes' fold is another tree, and the
-    bits differ (so the test above can fail)."""
+    """Without the bit reversal the lanes' fold is another tree, and so is
+    a partial level that pairs the tail with the wrong leaves: the bits
+    differ (so the test above can fail)."""
     x = torch.randn((4, 1152), generator=torch.Generator().manual_seed(4),
                     dtype=torch.float64).float() * 1e3
     want = kernels.chain_sum_plain(x)
     assert torch.equal(_row_sums(x, 8), want)
-    global _bitrev
-    real = _bitrev
+    global _bitrev, _fold
+    real_bitrev, real_fold = _bitrev, _fold
+
+    def fold_to_the_end(x, least):
+        n = x.shape[-1]
+        H = kernels.fold_length(n, least)
+        y = x[..., :H].clone()
+        y[..., 2 * H - n:] = y[..., 2 * H - n:] + x[..., H:]
+        return y
+
     try:
         _bitrev = lambda u, bits: u  # noqa: E731
         assert not torch.equal(_row_sums(x, 8), want)
+        _bitrev, _fold = real_bitrev, fold_to_the_end
+        assert not torch.equal(_row_sums(x, 8), want)
     finally:
-        _bitrev = real
+        _bitrev, _fold = real_bitrev, real_fold
+
+
+@pytest.mark.parametrize("n,H,lq", [(1, 32, 0), (32, 32, 0), (63, 32, 0),
+                                    (64, 64, 1), (512, 512, 4),
+                                    (1152, 1024, 5), (4232, 4096, 7),
+                                    (8464, 8192, 8)])
+def test_the_fold_drops_the_padding_leaves(n, H, lq):
+    """A row's folded tree has H = the largest power of two ≤ n leaves (32
+    at least), 2^lq a lane; the plain tree has ``tree_length(n)``."""
+    assert kernels.fold_length(n, 32) == H
+    assert kernels.sigma_cap_lq(n) == lq
+    assert kernels.tree_length(n) >= H and H <= max(n, 32) < 2 * H
 
 
 # --- the launch plan ------------------------------------------------------------
 
-#: each CTA's copy rings: 8 warps × 3 stages × 2 matrices × G × 32 lanes
-RING = {4: 8 * 3 * 2 * 16 * 32, 8: 8 * 3 * 2 * 4 * 32}
-
-
 def test_shared_memory_layout():
-    assert kernels.sigma_cap_smem(1152, 16, 4, True) == 4 * (
-        RING[4] + 2304 + 3 * 72 + 16 + 1)
-    assert kernels.sigma_cap_smem(1152, 16, 4, False) == 4 * (
-        RING[4] + 3 * 72 + 17)
-    assert kernels.sigma_cap_smem(5, 16, 8, True) == 8 * (RING[8] + 10 + 3
-                                                          + 17)
-    # a 256-leaf float32 row takes chunks of 8
-    assert kernels.sigma_cap_smem(200, 1, 4, True) == 4 * (
-        RING[4] // 2 + 400 + 600 + 2)
+    # v as pairs, the norm's fold_length(n, 64) / 2 values and a broadcast
+    # slot; on chip also the CTA's ⌈n / ctas⌉ rows of sr and of si
+    assert kernels.sigma_cap_smem(1152, 16, 4, "stream") == 4 * (
+        2304 + 512 + 1)
+    assert kernels.sigma_cap_smem(1152, 16, 4, "v_in_l2") == 4 * (512 + 1)
+    assert kernels.sigma_cap_smem(512, 16, 4, "on_chip") == 4 * (
+        1024 + 256 + 1 + 2 * 32 * 512)
+    assert kernels.sigma_cap_smem(5, 1, 8, "on_chip") == 8 * (
+        10 + 32 + 1 + 2 * 5 * 5)
+    assert kernels.sigma_cap_smem(8464, 132, 8, "stream") == 8 * (
+        16928 + 4096 + 1)
 
 
 def _card(per_sm: int, sms: int = 132):
     """A stand-in for the card's residency: ``per_sm`` CTAs an SM."""
-    return lambda v_in_smem, smem: per_sm * sms
+    return lambda mode, smem: per_sm * sms
 
 
 def test_the_batch_fits_on_the_card_at_once():
-    # 8 chains of 1152: 32 CTAs a chain fill 256 of 264 places
-    plan = kernels.choose_sigma_cap_plan(8, 1152, 4, _card(2))
+    # 8 chains of 1152: 16 CTAs a chain fill 128 of 132 places; S streams
+    plan = kernels.choose_sigma_cap_plan(8, 1152, 4, _card(1))
     assert plan == kernels.SigmaCapPlan(
-        32, True, kernels.sigma_cap_smem(1152, 32, 4, True), 8)
-    # two chains: 128 CTAs each; one float64 chain at 8464, one CTA an SM
-    assert kernels.choose_sigma_cap_plan(2, 4232, 4, _card(2)).ctas == 128
+        16, "stream", kernels.sigma_cap_smem(1152, 16, 4, "stream"), 8)
+    # the scan's 24 chains at 5 CTAs each, the 24×24/b64 leg's 64 at 2,
+    # their warps' rows first streamed into L2
+    assert kernels.choose_sigma_cap_plan(24, 1152, 4, _card(1))[:2] == (
+        5, "stream")
+    plan = kernels.choose_sigma_cap_plan(64, 1152, 4, _card(1))
+    assert (plan.ctas, plan.mode, plan.at_once, plan.prefetch) == (
+        2, "stream", 64, True)
+    # two chains of 4232: 66 CTAs each; one float64 chain of 8464 on every
+    # SM, v in shared memory (168 KB a CTA)
+    assert kernels.choose_sigma_cap_plan(2, 4232, 4, _card(1)).ctas == 66
     plan = kernels.choose_sigma_cap_plan(1, 8464, 8, _card(1))
-    assert plan.ctas == 128 and plan.v_in_smem and plan.at_once == 1
-    # n bounds the CTAs a chain; 64 chains fit at 4 CTAs each
-    assert kernels.choose_sigma_cap_plan(1, 100, 4, _card(2)).ctas == 64
-    plan = kernels.choose_sigma_cap_plan(64, 1152, 4, _card(2))
-    assert (plan.ctas, plan.at_once) == (4, 64)
+    assert (plan.ctas, plan.mode, plan.at_once) == (132, "stream", 1)
+    # n bounds the CTAs a chain
+    assert kernels.choose_sigma_cap_plan(1, 100, 4, _card(1)).ctas == 100
+
+
+def test_s_stays_on_chip_where_the_batch_fits():
+    """The 16×16/b8 headline's (8, 512): 16 CTAs a chain, 32 rows each of
+    sr and si beside v, about 135 KB a CTA, every chain at once; a single
+    chain of 1152 too (9 rows a CTA on 128 CTAs)."""
+    plan = kernels.choose_sigma_cap_plan(8, 512, 4, _card(1))
+    assert plan == kernels.SigmaCapPlan(
+        16, "on_chip", kernels.sigma_cap_smem(512, 16, 4, "on_chip"), 8)
+    assert 130_000 < plan.smem_bytes <= kernels.SIGMA_CAP_SMEM_MAX
+    plan = kernels.choose_sigma_cap_plan(1, 1152, 4, _card(1))
+    assert (plan.mode, plan.ctas) == ("on_chip", 132)
+    # too many rows a CTA: the 24×24 batches and config 5's stream
+    for B, n in ((8, 1152), (64, 1152), (2, 2048)):
+        assert kernels.choose_sigma_cap_plan(B, n, 4, _card(1)).mode \
+            == "stream"
+
+
+@pytest.mark.parametrize("B,n,itemsize,prefetch", [
+    (8, 512, 4, False), (8, 1152, 4, False), (24, 1152, 4, True),
+    (64, 1152, 4, True), (2, 2048, 4, False), (2, 4232, 4, False),
+    (1, 8464, 8, False)])
+def test_every_sm_keeps_its_warps_in_flight(B, n, itemsize, prefetch):
+    """One CTA of 16 warps an SM at every shape (128 registers a thread: 16
+    float32 leaves in flight a lane, 4 float64); the L2 prefetch where a
+    warp streams at least 8 rows a pass."""
+    plan = kernels.choose_sigma_cap_plan(B, n, itemsize, _card(1))
+    assert kernels.SIGMA_CAP_WARPS == 16
+    assert plan.ctas * plan.at_once <= 132
+    assert plan.prefetch == prefetch
+    rows = -(-n // plan.ctas)
+    assert (-(-rows // 16) >= kernels.SIGMA_CAP_PREFETCH_ROWS) == prefetch
 
 
 def test_a_batch_too_large_for_the_card_runs_in_turns():
-    plan = kernels.choose_sigma_cap_plan(100, 1152, 4, _card(2))
+    plan = kernels.choose_sigma_cap_plan(200, 1152, 4, _card(1))
     assert plan == kernels.SigmaCapPlan(
-        16, True, kernels.sigma_cap_smem(1152, 16, 4, True), 16)
-    # a card that holds fewer than 16 CTAs cannot take the call
+        1, "stream", kernels.sigma_cap_smem(1152, 1, 4, "stream"), 132,
+        True)
+    # a card that holds none cannot take the call
     with pytest.raises(ValueError, match="no launch fits"):
-        kernels.choose_sigma_cap_plan(100, 1152, 4, _card(1, sms=8))
+        kernels.choose_sigma_cap_plan(100, 1152, 4, _card(0))
 
 
 def test_the_plan_reads_v_from_l2_where_it_does_not_fit():
-    got = {ctas: kernels._sigma_cap_layout(8464, ctas, 8)
-           for ctas in kernels.SIGMA_CAP_CTAS}
-    assert got[128] == (True, 8 * (RING[8] + 2 * 8464 + 3 * 67 + 129))
-    assert got[4] == (False, 8 * (RING[8] + 3 * 2116 + 5))
-    assert all(s <= kernels.SIGMA_CAP_SMEM_MAX for _, s in got.values())
-    assert kernels._sigma_cap_layout(8464, 1, 8) is None
+    # v of 8464 doubles fits a CTA; of 30000 floats (240 KB) it does not
+    assert kernels.choose_sigma_cap_plan(1, 8464, 8, _card(1)).mode \
+        == "stream"
+    assert kernels.sigma_cap_smem(30000, 1, 4, "stream") \
+        > kernels.SIGMA_CAP_SMEM_MAX
+    plan = kernels.choose_sigma_cap_plan(1, 30000, 4, _card(1))
+    assert plan == kernels.SigmaCapPlan(132, "v_in_l2", 4 * (8192 + 1), 1,
+                                        True)
+    # past the longest rows the kernels are built for
     with pytest.raises(ValueError, match="no launch fits"):
-        kernels.choose_sigma_cap_plan(1, 10**7, 8, _card(2))
+        kernels.choose_sigma_cap_plan(1, 65536, 8, _card(1))
+
+
+def test_a_variant_rewrites_the_float32_constants():
+    """``drivers/sigma_cap_variants`` rebuilds K5 with other constants of
+    one type; the other type's constants and the rest of the source
+    stay."""
+    from dwavehmc_tpu_torch.drivers import sigma_cap_variants as sv
+
+    src = (kernels.CSRC_DIR / "sigma_cap.cu").read_text()
+    f32 = src[src.index("struct Cfg<float>"):src.index("struct Cfg<double>")]
+    f64 = src[src.index("struct Cfg<double>"):src.index("// A row's flavor")]
+    got = sv.variant_source(src, "float:32:8,4:2")
+    assert "kWarps = 32, kSlots = 2;\n  static constexpr int kGOf[2] = " \
+        "{8, 4};" in got
+    assert f64 in got and f32 not in got
+    got = sv.variant_source(src, "double:8:4,2:1")
+    assert "kWarps = 8, kSlots = 1;\n  static constexpr int kGOf[2] = " \
+        "{4, 2};" in got
+    assert f32 in got and f64 not in got
+    with pytest.raises(ValueError, match="type:warps:sparse,dense:slots"):
+        sv.variant_source(src, "float:32:16")
