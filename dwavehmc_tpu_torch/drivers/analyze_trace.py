@@ -13,11 +13,15 @@ its span and their ratio, and its top ops, as the JAX script reports them.
 stream (``stream 7``) and tags it with the categories in ``DEVICE_CATS``;
 the ``device`` entry of a summary is that work alone: the union of its
 intervals (the device's busy time) over the traced window, and its time by
-kernel family (``FAMILIES``).  ``--categories`` adds the device's self time
-by family: events nest (a kernel inside an annotation range, or a parent
-op around its children), so plain duration sums double-count; the sweep
-of ``self_times`` subtracts each event from its innermost enclosing
-parent on the same track.
+kernel family (``FAMILIES``).  The ``spans`` entry is the device's time
+by family under each innermost ``dwavehmc.*`` range the program opened
+(``utils/profiling.span``): each kernel, copy or set goes to the range
+open on the host thread at its launch, found by the correlation id that
+the launch and the device event share.  ``--categories`` adds the
+device's self time by family: events nest (a kernel inside an annotation
+range, or a parent op around its children), so plain duration sums
+double-count; the sweep of ``self_times`` subtracts each event from its
+innermost enclosing parent on the same track.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: kernel-name fragments → family, first match wins ("nvjet": cuBLAS's
 #: Hopper GEMM kernels)
 FAMILIES = (("rotation_s", "K1 rotation_s"), ("lorentz", "K2 lorentzian"),
+            ("chain_sum", "K3 chain_sum"), ("chain_matvec", "K4 chain_matvec"),
+            ("sigma_cap", "K5 sigma_cap"),
             ("trsm", "triangular solve"), ("potrf", "cholesky"),
             ("syev", "eigh"), ("sytrd", "eigh"), ("stedc", "eigh"),
             ("ormtr", "eigh"), ("hetrd", "eigh"), ("heev", "eigh"),
@@ -117,9 +123,80 @@ def device_summary(events, pnames, tnames, top_n: int) -> dict:
                                for k, v in by_name.most_common(top_n)}}
 
 
+#: host event categories of a device launch (``cudaLaunchKernel``,
+#: ``cuLaunchKernel``, ``cudaMemcpyAsync``, ...)
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+#: the prefix of the program's ranges, and the entry of device work
+#: launched outside all of them
+SPAN_PREFIX = "dwavehmc."
+NO_SPAN = "(no span)"
+
+
+def _innermost(ranges, launches) -> dict:
+    """Correlation id → name of the innermost range covering its launch,
+    for the (ts, end, name) ``ranges`` and (ts, correlation) ``launches`` of
+    one thread; ranges of one thread nest, so a stack finds it."""
+    out, stack, i = {}, [], 0
+    ranges = sorted(ranges, key=lambda r: (r[0], -r[1]))
+    for ts, corr in sorted(launches):
+        while i < len(ranges) and ranges[i][0] <= ts:
+            while stack and stack[-1][1] < ranges[i][0]:
+                stack.pop()
+            stack.append(ranges[i])
+            i += 1
+        while stack and stack[-1][1] < ts:
+            stack.pop()
+        if stack:
+            out[corr] = stack[-1][2]
+    return out
+
+
+def span_device_time(events) -> dict:
+    """Device milliseconds, kernel count and milliseconds by family of the
+    work launched under each innermost ``dwavehmc.*`` range (the host
+    ``user_annotation`` events ``utils/profiling.span`` opens), matched to
+    its launch by correlation id; work launched outside every range under
+    ``NO_SPAN``.  Empty when the trace has no such range."""
+    ranges = collections.defaultdict(list)
+    launches = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, key = e.get("cat"), (e.get("pid"), e.get("tid"))
+        if (cat == "user_annotation"
+                and e.get("name", "").startswith(SPAN_PREFIX)):
+            ts = float(e["ts"])
+            ranges[key].append((ts, ts + float(e.get("dur", 0.0)),
+                                e["name"]))
+        elif cat in LAUNCH_CATS and "correlation" in e.get("args", {}):
+            launches[key].append((float(e["ts"]),
+                                  e["args"]["correlation"]))
+    if not ranges:
+        return {}
+    owner = {}
+    for key, lst in launches.items():
+        owner.update(_innermost(ranges.get(key, []), lst))
+    out = collections.defaultdict(lambda: {"device_ms": 0.0, "kernels": 0,
+                                           "family_ms": collections.Counter()})
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        name = owner.get(e.get("args", {}).get("correlation"), NO_SPAN)
+        ms = float(e.get("dur", 0.0)) / 1e3
+        rec = out[name]
+        rec["device_ms"] += ms
+        rec["kernels"] += e.get("cat") == "kernel"
+        rec["family_ms"][family(e.get("name", "?"))] += ms
+    return {name: dict(rec, family_ms=dict(rec["family_ms"].most_common()))
+            for name, rec in sorted(out.items(),
+                                    key=lambda kv: -kv[1]["device_ms"])}
+
+
 def analyze(path: str, top_n: int) -> dict:
     """Per-track busy time, span, duty and top ops (the JAX script's
-    ``tracks``, its eight busiest), and the device's work (``device``)."""
+    ``tracks``, its eight busiest), the device's work (``device``) and its
+    time under the program's ranges (``spans``)."""
     events = load_events(path)
     pnames, tnames = _track_names(events)
     tracks = collections.defaultdict(lambda: {"busy": 0.0, "t0": None,
@@ -148,6 +225,7 @@ def analyze(path: str, top_n: int) -> dict:
                            for k, v in tr["ops"].most_common(top_n)},
         }
     out["device"] = device_summary(events, pnames, tnames, top_n)
+    out["spans"] = span_device_time(events)
     return out
 
 

@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import sync_span
 from .bdg import _pairing_tensors, _scatter_add, static_hamiltonian
 from .lattice import LatticeSpec, neighbor_tables
 
@@ -153,9 +154,16 @@ def symmetric_eigh(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     solver as they are."""
     wide = _WIDER.get(A.dtype)
     if A.is_cuda and wide is not None and A.shape[-1] <= 512:
-        w, V = torch.linalg.eigh(A.to(wide))
+        w, V = _eigh(A.to(wide))
         return w.float(), V.to(A.dtype)
-    return torch.linalg.eigh(A)
+    return _eigh(A)
+
+
+def _eigh(A: torch.Tensor):
+    """``torch.linalg.eigh``: its check of the solver's info value reads
+    the device, a host sync inside the call, so the span covers the call."""
+    with sync_span("eigh_info"):
+        return torch.linalg.eigh(A)
 
 
 def diagonalize_embedding(M: torch.Tensor

@@ -13,6 +13,7 @@ import torch
 
 from ..models.lattice import LatticeSpec, neighbor_tables
 from ..models.params import chain_view
+from ..utils.profiling import sync_span
 from .spectral import fermi_factors
 
 
@@ -20,7 +21,10 @@ def pairing_correlations_real(lat: LatticeSpec, evals, X, Y, beta):
     """(P_re, P_im), each (B, N, 2): P = −ρ_{i,j+N} − ρ_{j,i+N}."""
     N = lat.n_sites
     nn, _ = neighbor_tables(lat)
-    nn = torch.as_tensor(nn, dtype=torch.long, device=X.device)
+    # copied from pageable host memory each call: the copy waits for the
+    # stream, a host sync
+    with sync_span("forces_nn_table"):
+        nn = torch.as_tensor(nn, dtype=torch.long, device=X.device)
 
     f = fermi_factors(evals, beta)          # (B, 2N)
     WX = X * f[:, None, :]

@@ -59,6 +59,7 @@ import torch
 from ..models.bdg_real import diagonalize_embedding, symmetric_eigh
 from ..parallel.mesh import any_across_ranks
 from ..utils.precision import matmul_precision, product
+from ..utils.profiling import sync_span
 
 #: since the last ``reset_guard()``: guarded solves, their fallbacks, and
 #: over the fallbacks this process's voting chains that failed the guard —
@@ -351,18 +352,23 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
         broken = broken & votes
     GUARD["solves"] += 1
     # a healthy solve's one host read: any failure, any breakdown
-    failing, rescue = torch.stack([fails.any(), broken.any()]).tolist()
+    with sync_span("ph_guard"):
+        failing, rescue = torch.stack([fails.any(), broken.any()]).tolist()
     if rescue:
-        k = torch.nonzero(broken)[:, 0]
+        with sync_span("ph_rescue_rows"):
+            k = torch.nonzero(broken)[:, 0]
         wt[k], Vp[k] = _ritz_float64(Mg[k], sgn[k])
         GUARD["rescued"] += len(k)
         fails = guard_fails()
-        failing = bool(fails.any())
+        with sync_span("ph_rescue_guard"):
+            failing = bool(fails.any())
     if not any_across_ranks(failing):
         return (*_split_levels(wt, Vp), False)
     GUARD["fallbacks"] += 1
+    with sync_span("ph_fallback_counts"):
+        counts = fails.sum(-1).tolist()
     for name, n in zip(("resid_failed", "ratio_failed", "nonfinite"),
-                       fails.sum(-1).tolist()):
+                       counts):
         GUARD[name] += n
     return (*diagonalize_embedding(Mg), True)
 

@@ -29,6 +29,7 @@ import torch
 
 from ..models.bdg_real import diagonalize_embedding
 from ..utils.precision import matmul_precision, product
+from ..utils.profiling import sync_span
 from .kernels import chain_sum, rotation_s_parts, spectral_norm_est
 
 #: per-entry rotation cap (exact 2×2 Jacobi angle is ≤ π/4; damping keeps
@@ -221,6 +222,8 @@ def tracked_eigh(hr, hi, ur0, ui0, *, n_iter: int = 3, tol: float = 1e-4):
     scale = torch.clamp(torch.amax(torch.abs(d), dim=-1), min=1e-30)
     bad = res > tol * scale
     evals, Ur, Ui = _sort_by_evals(d, ur, ui)
-    if bool(bad.any()):
+    with sync_span("tracked_fallback"):
+        any_bad = bool(bad.any())
+    if any_bad:
         evals[bad], Ur[bad], Ui[bad] = full_eigh_from_parts(hr[bad], hi[bad])
     return evals, Ur, Ui, bad

@@ -48,6 +48,7 @@ from ..sampler.hmc_real import (
     tracked_accept_cheap,
     tracked_leapfrog,
 )
+from ..utils.profiling import span, spanned
 
 
 class SegmentResult(NamedTuple):
@@ -264,6 +265,7 @@ class DrawStream:
                 torch.stack(self.uniforms[start:start + n]))
 
 
+@spanned("dwavehmc.anchor")
 def tracked_accept_exact(lat: LatticeSpec, params: ModelParams,
                          states: HMCStateReal, proposal,
                          exact_solver: str = "qdwh", vote=None
@@ -303,6 +305,7 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
     """
     accs, dHs, obss = [], [], []
 
+    @spanned("dwavehmc.sweep")
     def sweep(states, i, cheap):
         n, u = _sweep_draws(normals, uniforms, i)
         prop = tracked_leapfrog(
@@ -318,7 +321,8 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
         accs.append(info.accepted)
         dHs.append(info.dH)
         if measure:
-            obss.append(measure_observables_real(lat, params, states))
+            with span("dwavehmc.observables"):
+                obss.append(measure_observables_real(lat, params, states))
         return states
 
     K = max(1, anchor_every)

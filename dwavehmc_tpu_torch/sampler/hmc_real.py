@@ -17,6 +17,7 @@ as inside any batch.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -42,6 +43,7 @@ from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
 from ..ops.tracked_eigh import tracked_eigh_nofallback
 from ..utils.device import resolve_device
+from ..utils.profiling import span, spanned, sync_span
 from .hmc import SweepInfo, _finite_or_zero, sweep_draws
 
 
@@ -196,6 +198,7 @@ def _refresh(params: ModelParams, state: HMCStateReal, normals, uniforms,
     return normals[:, 0] * scale, normals[:, 1] * scale, uniforms
 
 
+@spanned("dwavehmc.leapfrog")
 def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                      state: HMCStateReal, Nt: int, dt,
                      tracked_iters: int = 6, refine_iters: int = 0,
@@ -225,13 +228,18 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
 
     Hs_real = static_hamiltonian(lat, params.t, params.tp, params.mu,
                                  state.disorder)
-    dt = torch.as_tensor(dt, dtype=rdt, device=dev)
+    # a step from the host is copied from pageable memory: the copy waits
+    # for the stream, a host sync
+    on_dev = isinstance(dt, torch.Tensor) and dt.device == dev
+    with contextlib.nullcontext() if on_dev else sync_span("leapfrog_dt"):
+        dt = torch.as_tensor(dt, dtype=rdt, device=dev)
     dtv = chain_view(dt, 3)
     coef = chain_view(dt / (2.0 * mass), 3)
 
-    F_re, F_im, _, _ = hmc_forces_real(
-        lat, state.delta_re, state.delta_im, state.evals, state.X, state.Y,
-        beta, J)
+    with span("dwavehmc.forces"):
+        F_re, F_im, _, _ = hmc_forces_real(
+            lat, state.delta_re, state.delta_im, state.evals, state.X,
+            state.Y, beta, J)
     pre = pi_re0 + 0.5 * dtv * F_re
     pim = pi_im0 + 0.5 * dtv * F_im
 
@@ -242,12 +250,15 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
         dre = _finite_or_zero(dre + coef * pre)
         dim_ = _finite_or_zero(dim_ + coef * pim)
         hr, hi = assemble_parts(lat, Hs_real, dre, dim_)
-        e, X, Y, res = tracked_eigh_nofallback(hr, hi, X, Y,
-                                               n_iter=tracked_iters,
-                                               ns_steps=ns_steps,
-                                               rot_dtype=rot_dtype,
-                                               rot_scheme=rot_scheme)
-        F_re, F_im, _, _ = hmc_forces_real(lat, dre, dim_, e, X, Y, beta, J)
+        with span("dwavehmc.tracked_eigh"):
+            e, X, Y, res = tracked_eigh_nofallback(hr, hi, X, Y,
+                                                   n_iter=tracked_iters,
+                                                   ns_steps=ns_steps,
+                                                   rot_dtype=rot_dtype,
+                                                   rot_scheme=rot_scheme)
+        with span("dwavehmc.forces"):
+            F_re, F_im, _, _ = hmc_forces_real(lat, dre, dim_, e, X, Y,
+                                               beta, J)
         pre = pre + dtv * F_re
         pim = pim + dtv * F_im
         res_all.append(res)
@@ -259,16 +270,19 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
         hr, hi = assemble_parts(lat, Hs_real,
                                 _finite_or_zero(dre), _finite_or_zero(dim_))
         if refine_iters > 0:
-            e, X, Y, res_end = tracked_eigh_nofallback(
-                hr, hi, X, Y, n_iter=refine_iters,
-                eval_precision="highest" if polish_iters == 0 else None,
-                eval_correction=polish_correction and polish_iters == 0,
-                rot_scheme=rot_scheme)
+            with span("dwavehmc.tracked_eigh"):
+                e, X, Y, res_end = tracked_eigh_nofallback(
+                    hr, hi, X, Y, n_iter=refine_iters,
+                    eval_precision="highest" if polish_iters == 0 else None,
+                    eval_correction=polish_correction and polish_iters == 0,
+                    rot_scheme=rot_scheme)
         if polish_iters > 0:
-            e, X, Y, res_end = tracked_eigh_nofallback(
-                hr, hi, X, Y, n_iter=polish_iters,
-                precision=polish_precision, eval_precision="highest",
-                eval_correction=polish_correction, rot_scheme=rot_scheme)
+            with span("dwavehmc.tracked_eigh"):
+                e, X, Y, res_end = tracked_eigh_nofallback(
+                    hr, hi, X, Y, n_iter=polish_iters,
+                    precision=polish_precision, eval_precision="highest",
+                    eval_correction=polish_correction,
+                    rot_scheme=rot_scheme)
 
     return Proposal(dre, dim_, pre, pim, pi_re0, pi_im0, uniforms,
                     torch.stack(res_all).amax(dim=0), e, X, Y, res_end)
@@ -306,6 +320,7 @@ def _select(accept, new, old):
     return torch.where(chain_view(accept, new.ndim), new, old)
 
 
+@spanned("dwavehmc.accept_cheap")
 def tracked_accept_cheap(lat: LatticeSpec, params: ModelParams,
                          state: HMCStateReal, proposal: Proposal
                          ) -> tuple[HMCStateReal, SweepInfo]:

@@ -2,18 +2,95 @@
 per-phase wall-clock spans, an optional ``torch.profiler`` trace
 (TensorBoard format, a chrome trace that ``drivers/analyze_trace.py``
 reads) around any phase, and the time of each call of a function on its
-device."""
+device.
+
+``span(name)`` marks a range of the program's own work on the profiler's
+timeline: while a ``torch.profiler`` session is on it opens a
+``record_function`` range (a ``user_annotation`` event beside the kernels
+it launched) and adds one call and its host seconds to ``SPANS``; while
+none is on it does nothing past one check.  ``sync_span(site)`` is the span
+``dwavehmc.sync.<site>`` around one call that makes the host wait for the
+device (a read of a device value, a copy from pageable host memory), so its
+calls count the host syncs.  ``SPANS`` holds exactly the work done under a
+profiler since the last ``reset_spans()``.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 
 import torch
 
+#: name → [calls, host seconds] of every ``span`` closed while a
+#: ``torch.profiler`` session was on, since the last ``reset_spans()``
+SPANS: dict[str, list] = {}
+
+#: the prefix of every span the program opens
+PREFIX = "dwavehmc."
+#: the prefix of the spans around a host sync
+SYNC_PREFIX = PREFIX + "sync."
+
+_OFF = contextlib.nullcontext()
+
+
+def reset_spans() -> None:
+    SPANS.clear()
+
+
+class _Span:
+    """A ``record_function`` range whose host time goes to ``SPANS``."""
+
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._range.__exit__(*exc)
+        rec = SPANS.setdefault(self.name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += dt
+        return False
+
+
+def span(name: str):
+    """Context manager: the range ``name`` while a profiler is on, else a
+    no-op that reads no clock and writes nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def sync_span(site: str):
+    """``span("dwavehmc.sync.<site>")``: wrap exactly one call that makes
+    the host wait for the device's stream: a read of a device value
+    (``.tolist()``, ``bool``, ``nonzero``, a library call that reads its
+    own status) or a copy from pageable host memory."""
+    return span(SYNC_PREFIX + site)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
 
 class PhaseTimer:
-    """Accumulates named wall-clock spans; renders a summary line."""
+    """Accumulates named wall-clock spans; renders a summary line.  Each
+    span is also ``span("dwavehmc.<name>")``, so it shows in a trace."""
 
     def __init__(self):
         self.spans: dict[str, float] = {}
@@ -22,7 +99,8 @@ class PhaseTimer:
     def span(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(PREFIX + name):
+                yield
         finally:
             self.spans[name] = self.spans.get(name, 0.0) + (
                 time.perf_counter() - t0)
