@@ -175,7 +175,14 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    (``graft.entry``), and ``dryrun_multichip(2)`` with both ranks on the
    card under its own limit, each rank's launches in its report
    (``graft.dryrun_multichip``);
-16. profiles one more K=1 sweep and transport pass with ``torch.profiler``
+16. replays the cheap tracked sweep as a CUDA graph
+   (``parallel/cheap_graph``, ``graph.cheap_sweep``): two anchor periods
+   of the fast mix at 16×16 with 8 chains, β changed between them, eager
+   and through the graph, bit-equal, the launch counts equal, the peak
+   allocated and reserved of each, the kernels a traced replay shows; then
+   a cheap sweep eager against graph from 16×16/b8 to 24×24/b64, which set
+   the gate's threshold;
+17. profiles one more K=1 sweep and transport pass with ``torch.profiler``
    and prints device time by kernel family, then times five transport passes
    and profiles one alone (outside the counted window).
 
@@ -3632,6 +3639,261 @@ def large_lattice_phase(dev, power: str) -> dict:
     return launches
 
 
+#: the fast mix (``hmc_bench/traffic/fast.json``) as the cheap sweep runs it
+FAST_TRACK = dict(tracked_iters=6, refine_iters=6, polish_iters=3,
+                  ns_steps=1, rot_dtype=torch.bfloat16,
+                  polish_precision="highest", polish_correction=False,
+                  rot_scheme="exp2", exact_solver="ph")
+#: (L, chains) of the cheap sweeps timed eager against graph, around the
+#: gate's threshold on B·(2N)² (2.1 M at 16×16/b8, 10.6 M at 24×24/b8)
+GRAPH_SHAPES = ((16, 8), (16, 16), (24, 4), (24, 8), (24, 16), (24, 64))
+GRAPH_K = 10
+
+
+def _graph_periods(dev, lat, B: int):
+    """Two anchor periods (K = 10) of the fast mix at β 10 then 12 from
+    one guarded-PH start: a function that runs them, [(SegmentResult,
+    end state)] each."""
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        init_ensemble_real,
+        run_segment_tracked,
+    )
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    K = GRAPH_K
+    g = torch.Generator(device=dev).manual_seed(1717)
+    p0 = make_params(beta=10.0, dtype=torch.float32, device=dev, **PHYS)
+    s0 = init_ensemble_real(lat, p0, g, B, dtype=torch.float32,
+                            n_imp=PHYS["n_imp"], exact_solver="ph",
+                            device=dev)
+    nrm = torch.randn((2 * K, B, 2, lat.n_sites, 2), generator=g, device=dev)
+    u = torch.rand((2 * K, B), generator=g, device=dev)
+
+    def run():
+        s, out = s0, []
+        for k, beta in enumerate((10.0, 12.0)):
+            p = make_params(beta=beta, dtype=torch.float32, device=dev,
+                            **PHYS)
+            s, seg = run_segment_tracked(
+                lat, p, s, K, 6, calc_optimal_dt(beta, PHYS["J"],
+                                                 PHYS["mass"], 6),
+                False, anchor_every=K, normals=nrm[k * K:(k + 1) * K],
+                uniforms=u[k * K:(k + 1) * K], **FAST_TRACK)
+            out.append((seg, s))
+        return out
+    return run
+
+
+def _memory_counted(fn):
+    """(``_counted(fn)``, peak allocated, peak reserved) from an emptied
+    cache and reset peaks."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = _counted(fn)
+    return out, torch.cuda.max_memory_allocated(), \
+        torch.cuda.max_memory_reserved()
+
+
+def _bit_diff(eager, graph) -> dict:
+    """Where two runs' records and end states differ, and by how much."""
+    out = {"equal": True, "dH_max_abs": 0.0, "accept_flips": 0,
+           "state_max_abs": 0.0}
+    for (se, xe), (sg, xg) in zip(eager, graph):
+        out["equal"] &= bool(torch.equal(se.dH, sg.dH)
+                             and torch.equal(se.accepted, sg.accepted)
+                             and all(torch.equal(a, b)
+                                     for a, b in zip(xe, xg)))
+        out["dH_max_abs"] = max(out["dH_max_abs"],
+                                float((se.dH - sg.dH).abs().max()))
+        out["accept_flips"] += int((se.accepted != sg.accepted).sum())
+        out["state_max_abs"] = max(out["state_max_abs"], *(
+            float((a - b).abs().max()) for a, b in zip(xe, xg)))
+    return out
+
+
+def _traced_kernels(fn) -> dict:
+    """What a ``torch.profiler`` trace of ``fn()`` shows on the device: its
+    kernels' count, by ``analyze_trace`` family their count and
+    milliseconds, and by name their count; its memcpy events' count."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dwavehmc_tpu_torch.drivers import analyze_trace as at
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = at.load_events(path)
+    fam: dict = {}
+    names: dict = {}
+    n = copies = 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            n += 1
+            rec = fam.setdefault(at.family(e["name"]), [0, 0.0])
+            rec[0] += 1
+            rec[1] += float(e.get("dur", 0.0)) * 1e-3
+            names[e["name"][:100]] = names.get(e["name"][:100], 0) + 1
+        copies += e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+    return {"kernels": n, "memcpy": copies, "families": fam,
+            "names": names}
+
+
+def _cheap_timings(dev, L: int, B: int, reps: int) -> dict:
+    """Milliseconds a cheap sweep of the fast mix takes at (L, B), eager
+    and as a graph replay (host clock, synchronized), the capture's
+    seconds and the graph's private pool."""
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel import cheap_graph as cg
+    from dwavehmc_tpu_torch.parallel.ensemble import (
+        device_step,
+        init_ensemble_real,
+    )
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    lat = LatticeSpec(L, L)
+    spec = cg.CheapSpec(6, *(FAST_TRACK[k] for k in cg.CheapSpec._fields[1:]))
+    g = torch.Generator(device=dev).manual_seed(L * 1000 + B)
+    p = make_params(beta=10.0, dtype=torch.float32, device=dev, **PHYS)
+    s = init_ensemble_real(lat, p, g, B, dtype=torch.float32,
+                           n_imp=PHYS["n_imp"], exact_solver="ph",
+                           device=dev)
+    n = torch.randn((B, 2, lat.n_sites, 2), generator=g, device=dev)
+    u = torch.rand((B,), generator=g, device=dev)
+    dt = device_step(calc_optimal_dt(10.0, PHYS["J"], PHYS["mass"], 6),
+                     s.evals)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    new = cg.eager_sweep(lat, spec, p, s, dt, n, u)[0]
+    eager = [wall(lambda: cg.eager_sweep(lat, spec, p, s, dt, n, u))[0]
+             for _ in range(reps)]
+    del new
+    torch.cuda.empty_cache()
+    new = cg.eager_sweep(lat, spec, p, s, dt, n, u)[0]
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    capture_ms, graph = wall(lambda: cg.CheapGraph.capture(
+        lat, spec, p, new, dt, n, u))
+    pool = torch.cuda.memory_reserved() - reserved
+    state, replay = graph.state, []
+    for _ in range(reps):
+        ms, (state, *_) = wall(lambda: graph.replay(p, state, dt, n, u))
+        replay.append(ms)
+    out = {"L": L, "chains": B, "work": B * (2 * lat.n_sites) ** 2,
+           "eager_ms": eager, "graph_ms": replay,
+           "eager_median_ms": float(np.median(eager)),
+           "graph_median_ms": float(np.median(replay)),
+           "capture_ms": capture_ms, "pool_reserved_gib": pool / 2**30,
+           "gate_on": cg.graph_worthwhile(B, 2 * lat.n_sites)}
+    out["graph_over_eager"] = out["graph_median_ms"] / out["eager_median_ms"]
+    del graph, state, new, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_cheap_sweep_phase(dev, power: str) -> dict:
+    """``parallel/cheap_graph``: two anchor periods of the fast mix at
+    16×16 with 8 chains (β 10, then 12), eager (the gate closed) and
+    through the graph (a warm-up sweep, its capture, 17 replays), then the
+    graph again from its cache: dH, accept flags and end states bit-equal
+    (a difference fails the phase; its size is reported), ``LAUNCHES`` equal,
+    peak allocated and reserved of each; the kernels a traced replay shows
+    by family beside a traced eager sweep's; then a cheap sweep's
+    milliseconds, eager against graph, at ``GRAPH_SHAPES``, which set the
+    gate's threshold."""
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel import cheap_graph as cg
+    from dwavehmc_tpu_torch.parallel.ensemble import device_step
+    from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+
+    lat, B = LatticeSpec(16, 16), N_CHAINS
+    run = _graph_periods(dev, lat, B)
+    cg.reset_graphs()
+    gate = cg.use_graph
+    cg.use_graph = lambda states: False     # the eager reference
+    try:
+        (eager, l_eager, s_eager), a_eager, r_eager = _memory_counted(run)
+    finally:
+        cg.use_graph = gate
+    counts = dict(cg.COUNTS)
+    (graph, l_graph, s_graph), a_graph, r_graph = _memory_counted(run)
+    counts = {k: cg.COUNTS[k] - n for k, n in counts.items()}
+    (again, l_again, s_again), a_again, r_again = _memory_counted(run)
+    diff, diff_again = _bit_diff(eager, graph), _bit_diff(eager, again)
+
+    # one more cheap sweep from the last state, traced: eager, then replayed
+    spec = cg.CheapSpec(6, *(FAST_TRACK[k] for k in cg.CheapSpec._fields[1:]))
+    p = make_params(beta=12.0, dtype=torch.float32, device=dev, **PHYS)
+    st = graph[-1][1]
+    dt = device_step(calc_optimal_dt(12.0, PHYS["J"], PHYS["mass"], 6),
+                     st.evals)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    traced_eager = _traced_kernels(lambda: cg.eager_sweep(
+        lat, spec, p, st, dt, generator=gen))
+    traced_graph = _traced_kernels(lambda: cg.cheap_sweep(
+        lat, spec, p, st, dt, generator=gen))
+    # kernels whose count differs between the traced replay and eager sweep
+    names_e, names_g = traced_eager.pop("names"), traced_graph.pop("names")
+    traced_graph["kernels_not_in_eager"] = {
+        k: names_g.get(k, 0) - names_e.get(k, 0)
+        for k in set(names_e) | set(names_g)
+        if names_g.get(k, 0) != names_e.get(k, 0)}
+    emit({"phase": "graph.cheap_sweep", "lattice": [16, 16], "chains": B,
+          "K": GRAPH_K, "periods": 2, "bits": diff,
+          "bits_from_cache": diff_again, "counts": counts,
+          "launches": {"eager": l_eager, "graph": l_graph,
+                       "cached": l_again},
+          "seconds": {"eager": s_eager, "graph": s_graph,
+                      "cached": s_again},
+          "max_memory_allocated_gib": {"eager": a_eager / 2**30,
+                                       "graph": a_graph / 2**30,
+                                       "cached": a_again / 2**30},
+          "max_memory_reserved_gib": {"eager": r_eager / 2**30,
+                                      "graph": r_graph / 2**30,
+                                      "cached": r_again / 2**30},
+          "traced_sweep": {"eager": traced_eager, "graph": traced_graph},
+          "gpu": power})
+    check(counts["captures"] == 1 and counts["capture_failures"] == 0
+          and counts["replays"] == 2 * (GRAPH_K - 1) - 1,
+          f"graph.cheap_sweep: counts {counts}")
+    check(diff["equal"] and diff_again["equal"],
+          f"graph.cheap_sweep: graph against eager {diff}, from the cache "
+          f"{diff_again}")
+    check(l_eager == l_graph == l_again,
+          f"graph.cheap_sweep: launches eager {l_eager}, graph {l_graph}, "
+          f"cached {l_again}")
+    for seg, _ in graph + again:
+        check(bool(torch.isfinite(seg.dH).all()),
+              f"graph.cheap_sweep: dH {seg.dH}")
+    cg.reset_graphs()
+    del eager, graph, again, st
+    torch.cuda.empty_cache()
+
+    rows = [_cheap_timings(dev, L, b, 3 if b * L * L > 10000 else 5)
+            for L, b in GRAPH_SHAPES]
+    emit({"phase": "graph.cheap_sweep.timings", "rows": rows,
+          "threshold": cg.GRAPH_MAX_WORK, "gpu": power})
+    launches = dict(l_eager)
+    for k, n in l_graph.items():
+        launches[k] += n + l_again[k]
+    return launches
+
+
 #: the graft dry run's ranks, all on the card
 GRAFT_RANKS = 2
 
@@ -3779,6 +4041,8 @@ def main(argv=None) -> int:
               f"kernel {name} was not launched by tracked.large_lattice")
         launches[name] += n
     for name, n in graft_entry_phase(dev, power).items():
+        launches[name] += n
+    for name, n in graph_cheap_sweep_phase(dev, power).items():
         launches[name] += n
     postprocess_cli_phase(power)
     quickcheck_phase(power)

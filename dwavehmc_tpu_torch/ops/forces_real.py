@@ -9,6 +9,8 @@ as row gathers and row contractions over a leading chain dimension.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..models.lattice import LatticeSpec, neighbor_tables
@@ -17,14 +19,20 @@ from ..utils.profiling import sync_span
 from .spectral import fermi_factors
 
 
+@functools.lru_cache(maxsize=None)
+def _nn_table(lat: LatticeSpec, device: torch.device) -> torch.Tensor:
+    """The (N, 4) neighbour table on ``device``, copied once a lattice and
+    device: the copy from pageable host memory waits for the stream, a host
+    sync, and a CUDA graph cannot hold it."""
+    nn, _ = neighbor_tables(lat)
+    with sync_span("forces_nn_table"):
+        return torch.as_tensor(nn, dtype=torch.long, device=device)
+
+
 def pairing_correlations_real(lat: LatticeSpec, evals, X, Y, beta):
     """(P_re, P_im), each (B, N, 2): P = −ρ_{i,j+N} − ρ_{j,i+N}."""
     N = lat.n_sites
-    nn, _ = neighbor_tables(lat)
-    # copied from pageable host memory each call: the copy waits for the
-    # stream, a host sync
-    with sync_span("forces_nn_table"):
-        nn = torch.as_tensor(nn, dtype=torch.long, device=X.device)
+    nn = _nn_table(lat, X.device)
 
     f = fermi_factors(evals, beta)          # (B, 2N)
     WX = X * f[:, None, :]

@@ -635,6 +635,9 @@ def sigma_cap_info(n: int, dtype: torch.dtype, plan: SigmaCapPlan) -> dict:
 
 #: each device's barrier counters: zeros, which every launch leaves zero
 _SIGMA_CAP_COUNTERS: dict = {}
+#: counters outgrown by a larger batch, kept: a captured CUDA graph holds
+#: their address (``parallel/cheap_graph.py``)
+_OUTGROWN_COUNTERS: list = []
 
 
 def _sigma_cap_counters(dev: torch.device, B: int) -> torch.Tensor:
@@ -643,6 +646,8 @@ def _sigma_cap_counters(dev: torch.device, B: int) -> torch.Tensor:
     them, so they run in one stream's order."""
     bar = _SIGMA_CAP_COUNTERS.get(dev)
     if bar is None or bar.numel() < B:
+        if bar is not None:
+            _OUTGROWN_COUNTERS.append(bar)
         bar = torch.zeros((B,), dtype=torch.int32, device=dev)
         _SIGMA_CAP_COUNTERS[dev] = bar
     return bar

@@ -16,7 +16,9 @@ sweep into separately compiled programs and caps fused sweeps per program
 PyTorch runs eagerly, so none of that is needed.  What those workarounds
 protected stays: the anchor cadence (K−1 cheap sweeps, then one sweep with
 an exact anchor), and a segment always ends on an exact anchor, so the
-eigenpairs it hands to transport are exact.
+eigenpairs it hands to transport are exact.  On a CUDA device a small
+batch's cheap sweep is replayed as one CUDA graph (``cheap_graph.py``);
+the anchored sweep, whose guard reads the host, stays eager.
 """
 
 from __future__ import annotations
@@ -45,10 +47,10 @@ from ..sampler.hmc_real import (
     init_chain_state_real,
     proposal_embedding,
     tracked_accept,
-    tracked_accept_cheap,
     tracked_leapfrog,
 )
-from ..utils.profiling import span, spanned
+from ..utils.profiling import span, spanned, sync_span
+from .cheap_graph import CheapSpec, cheap_sweep
 
 
 class SegmentResult(NamedTuple):
@@ -280,6 +282,18 @@ def tracked_accept_exact(lat: LatticeSpec, params: ModelParams,
     return tracked_accept(lat, params, states, proposal, eig_new=eig_new)
 
 
+def device_step(dt, like: torch.Tensor) -> torch.Tensor:
+    """The leapfrog step ``dt`` (a number, or per chain) as a tensor of
+    ``like``'s dtype on its device: a number is filled there, which the
+    host does not wait for; data on the host is copied, one host sync."""
+    if isinstance(dt, torch.Tensor) and dt.device == like.device:
+        return dt.to(like.dtype)
+    if isinstance(dt, (int, float)):
+        return torch.full((), float(dt), dtype=like.dtype, device=like.device)
+    with sync_span("leapfrog_dt"):
+        return torch.as_tensor(dt, dtype=like.dtype, device=like.device)
+
+
 def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
                         states: HMCStateReal, n_sweeps: int, Nt: int, dt,
                         measure: bool = True, tracked_iters: int = 6,
@@ -299,27 +313,35 @@ def run_segment_tracked(lat: LatticeSpec, params: ModelParams,
     spectrum (``refine_iters`` fast + ``polish_iters`` "highest" rotations).
     A final short block still ends on an exact anchor, one ``_batch_eigs``
     call of the proposals' embeddings.  ``dt`` is a scalar
-    or a per-chain (B,) step.  Draws: ``normals`` (n_sweeps, B, 2, N, 2) and
-    ``uniforms`` (n_sweeps, B), or else from ``generator``, sweep by sweep.
-    ``vote``: the guarded anchor's (``_batch_eigs``).
+    or a per-chain (B,) step, made a device tensor once a segment.  Draws:
+    ``normals`` (n_sweeps, B, 2, N, 2) and ``uniforms`` (n_sweeps, B), or
+    else from ``generator``, sweep by sweep.  ``vote``: the guarded
+    anchor's (``_batch_eigs``).  A cheap sweep goes through
+    ``cheap_graph.cheap_sweep``: one CUDA-graph replay for a small batch on
+    the card, with the eager sweep's bits.
     """
     accs, dHs, obss = [], [], []
+    dt = device_step(dt, states.evals)
+    spec = CheapSpec(Nt, tracked_iters, refine_iters, polish_iters, ns_steps,
+                     rot_dtype, polish_precision, polish_correction,
+                     rot_scheme)
 
     @spanned("dwavehmc.sweep")
     def sweep(states, i, cheap):
         n, u = _sweep_draws(normals, uniforms, i)
-        prop = tracked_leapfrog(
-            lat, params, states, Nt, dt, tracked_iters,
-            refine_iters if cheap else 0, polish_iters if cheap else 0,
-            ns_steps, rot_dtype, polish_precision, polish_correction,
-            rot_scheme, normals=n, uniforms=u, generator=generator)
         if cheap:
-            states, info = tracked_accept_cheap(lat, params, states, prop)
+            states, accepted, dH = cheap_sweep(lat, spec, params, states, dt,
+                                               n, u, generator)
         else:
+            prop = tracked_leapfrog(
+                lat, params, states, Nt, dt, tracked_iters, 0, 0, ns_steps,
+                rot_dtype, polish_precision, polish_correction, rot_scheme,
+                normals=n, uniforms=u, generator=generator)
             states, info = tracked_accept_exact(lat, params, states, prop,
                                                 exact_solver, vote)
-        accs.append(info.accepted)
-        dHs.append(info.dH)
+            accepted, dH = info.accepted, info.dH
+        accs.append(accepted)
+        dHs.append(dH)
         if measure:
             with span("dwavehmc.observables"):
                 obss.append(measure_observables_real(lat, params, states))
