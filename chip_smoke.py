@@ -45,6 +45,11 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    floor is a false one and there must be none; a chain whose float32
    CholeskyQR³ broke down must be the one the guard rescued, its
    eigenvalue error at most the healthy chains' (``anchor.ph_draws``);
+   then the benchmark's production cell (64 chains of 24×24, the fast
+   mix) from the seed on which a chain once diverged and the anchor's
+   float32 ``eigh`` did not converge (F8): the run ends, every diverged
+   trajectory is rejected, and the guard's counts, ``redone`` among them,
+   and each such trajectory's ΔH are printed (``anchor.diverged_chain``);
 4. holds a small run on the card (float32, kernels) against the same run on
    the CPU (float64, plain versions), once per exact solver (qdwh, ph);
 5. drives the main path — the 24×24 production configuration, 8 chains at 8
@@ -1395,6 +1400,73 @@ def ph_draws_phase(dev, power: str) -> None:
                   f"anchor.ph_draws seed {r['seed']}: rescued chain {c}'s "
                   f"eigenvalue error {e} > the healthy chains' "
                   f"{r['eval_err_healthy_max']}")
+
+
+#: the production cell of the benchmark, and the seed on which, at dt × 1.0
+#: and 10 thermalization sweeps, one of its chains diverged and the
+#: anchor's float32 ``eigh`` did not converge (ROADMAP fault F8); at the
+#: cell's own settings the seed's run diverges several trajectories too
+F8_CELL, F8_SEED = "dwave24_b64.fast", 3500000012
+#: a trajectory whose |ΔH| passes this (or is not finite) has diverged
+DIVERGED_DH = 1e6
+
+
+def diverged_chain_phase(dev, power: str, seconds: float = 51.0) -> dict:
+    """The benchmark's production cell (64 chains of 24×24, the fast mix)
+    from ``F8_SEED`` as ``hmc_bench.run`` drives it (``harness.run_cell``:
+    ``init_fn``, the thermalization, the warm-up period and a window of
+    ``seconds``), each ``seg_fn`` call watched: the guard's counts over
+    it, and each trajectory whose |ΔH| passes ``DIVERGED_DH`` or is not
+    finite with its decision (``anchor.diverged_chain``).  The run must
+    end, every such trajectory be rejected, and the final state be finite;
+    ``GUARD["redone"]`` counts the chains whose float32 ``eigh`` did not
+    converge and were redone in float64."""
+    from dwavehmc_tpu_torch.ops import ph_eigh
+    from hmc_bench.harness import load_cell, run_cell
+
+    calls = []
+
+    def watch(seg_fn):
+        def step(*a, **k):
+            g0, t0 = dict(ph_eigh.GUARD), time.perf_counter()
+            states, res = seg_fn(*a, **k)
+            dH = res.dH.double().cpu()
+            acc = res.accepted.cpu()
+            bad = torch.nonzero(~torch.isfinite(dH)
+                                | (dH.abs() > DIVERGED_DH)).tolist()
+            calls.append({
+                "sweeps": int(dH.shape[0]),
+                "seconds": time.perf_counter() - t0,
+                "guard": {n: ph_eigh.GUARD[n] - g0[n] for n in g0},
+                "diverged": [{"sweep": i, "chain": c, "dH": float(dH[i, c]),
+                              "accepted": bool(acc[i, c])}
+                             for i, c in bad]})
+            return states, res
+        return step
+
+    cell = load_cell(F8_CELL)
+    run = run_cell(cell, F8_SEED, seconds, False, dev, wrap_seg=watch)
+    diverged = [dict(d, call=i) for i, c in enumerate(calls)
+                for d in c["diverged"]]
+    guard = {n: sum(c["guard"][n] for c in calls) for n in ph_eigh.GUARD}
+    end = run.periods[-1]
+    finite = all(bool(torch.isfinite(x).all()) for x in (*end.end,
+                                                         end.evals))
+    emit({"phase": "anchor.diverged_chain", "cell": F8_CELL,
+          "seed": F8_SEED, "guard": guard, "diverged": diverged,
+          "calls": [{k: c[k] for k in ("sweeps", "seconds", "guard")}
+                    for c in calls],
+          "setup_s": run.setup_s, "window_s": run.window_s,
+          "periods": len(run.periods), "attempted": run.attempted,
+          "accepted": run.accepted, "failed": run.failed,
+          "peak_gib": run.peak_bytes and run.peak_bytes / 2**30,
+          "final_state_finite": finite,
+          "gpu": power})
+    check(all(not d["accepted"] for d in diverged),
+          f"anchor.diverged_chain: a diverged trajectory was accepted: "
+          f"{diverged}")
+    check(finite, "anchor.diverged_chain: the final state is not finite")
+    return guard
 
 
 # --- the scan entry point -----------------------------------------------------
@@ -3973,6 +4045,7 @@ def main(argv=None) -> int:
     table.update(sigma_cap_phase(dev, power))
     anchor_phases(dev, gen, power)
     ph_draws_phase(dev, power)
+    diverged_chain_phase(dev, power)
     for solver in ("qdwh", "ph"):
         reference_phase(dev, args.seed, solver)
     launches = main_path(dev, args.seed, power)

@@ -141,7 +141,8 @@ def assemble_parts(lat: LatticeSpec, Hs_real: torch.Tensor,
 _WIDER = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 
-def symmetric_eigh(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def symmetric_eigh(A: torch.Tensor, counts: dict | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``torch.linalg.eigh`` of a batch of real symmetric or complex
     Hermitian matrices, with single-precision accuracy on the card.
 
@@ -151,30 +152,70 @@ def symmetric_eigh(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     — enough to move ΔH by 0.1 at β = 50.  Single-precision matrices
     (float32 and complex64) of dimension ≤ 512 are diagonalized in double
     precision and cast back; larger ones go to the divide-and-conquer
-    solver as they are."""
+    solver as they are.
+
+    A single-precision batch whose solver does not converge (as cuSOLVER's
+    float32 solver did on a diverged chain's embedding at dimension 2304)
+    does not raise: it is solved again chain by chain (``_eigh_by_chain``),
+    and only the chains that fail alone are redone in double precision,
+    their number added to ``counts["redone"]``.  A batch that converges
+    takes the one call it always took."""
     wide = _WIDER.get(A.dtype)
     if A.is_cuda and wide is not None and A.shape[-1] <= 512:
         w, V = _eigh(A.to(wide))
         return w.float(), V.to(A.dtype)
-    return _eigh(A)
+    try:
+        return _eigh(A)
+    except torch.linalg.LinAlgError:
+        if wide is None:
+            raise
+    w, V, redone = _eigh_by_chain(A, wide)
+    if counts is not None:
+        counts["redone"] += redone
+    return w, V
 
 
-def _eigh(A: torch.Tensor):
+def _eigh(A: torch.Tensor, site: str = "eigh_info"):
     """``torch.linalg.eigh``: its check of the solver's info value reads
     the device, a host sync inside the call, so the span covers the call."""
-    with sync_span("eigh_info"):
+    with sync_span(site):
         return torch.linalg.eigh(A)
 
 
-def diagonalize_embedding(M: torch.Tensor
+def _eigh_by_chain(A: torch.Tensor, wide: torch.dtype):
+    """(w, V, redone): each matrix of the batch ``A`` solved alone in its
+    own precision, and the ones that fail to converge again solved in
+    ``wide`` and cast back (``redone`` of them); one that fails in ``wide``
+    too gets NaN eigenpairs, which the Metropolis step rejects.  Each solve
+    is one host read, under ``dwavehmc.sync.fallback_redo``."""
+    real = A.real.dtype
+    ws, Vs, redone = [], [], 0
+    for a in A.reshape(-1, *A.shape[-2:]):
+        try:
+            w, V = _eigh(a, "fallback_redo")
+        except torch.linalg.LinAlgError:
+            redone += 1
+            try:
+                w, V = _eigh(a.to(wide), "fallback_redo")
+            except torch.linalg.LinAlgError:
+                w = torch.full(a.shape[-1:], float("nan"), dtype=real,
+                               device=a.device)
+                V = torch.full_like(a, float("nan"))
+        ws.append(w.to(real))
+        Vs.append(V.to(A.dtype))
+    return (torch.stack(ws).reshape(A.shape[:-1]),
+            torch.stack(Vs).reshape(A.shape), redone)
+
+
+def diagonalize_embedding(M: torch.Tensor, counts: dict | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(evals (B, 2N), X (B, 2N, 2N), Y (B, 2N, 2N)): one eigenpair per
     doubled level, kept as the JAX package keeps it (``V[..., ::2]``); the
     complex eigenvectors are U = X + iY (phase-arbitrary, which every
     downstream quantity is invariant to).  The eigensolver is
     ``symmetric_eigh`` (float64 on the card up to dimension 512, i.e.
-    lattices up to 11×11)."""
-    w, V = symmetric_eigh(M)
+    lattices up to 11×11; ``counts`` as there)."""
+    w, V = symmetric_eigh(M, counts)
     dim = M.shape[-1] // 2
     evals = w[..., ::2].contiguous()
     X = V[..., :dim, ::2].contiguous()

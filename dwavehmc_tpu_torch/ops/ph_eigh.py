@@ -47,6 +47,15 @@ by Newton–Schulz steps, the sketch, CholeskyQR³ and the Rayleigh–Ritz
 step), and counted in ``GUARD["rescued"]``.  A chain that does not break
 down takes exactly the JAX algorithm's operations; the rescue's syncs run
 only when a chain broke down.
+
+A diverged chain (levels of ~1e35, finite, so the zeroing of non-finite
+entries keeps them) fails the guard, and the fallback's float32 ``eigh``
+may then not converge on the card.  ``symmetric_eigh`` then solves the
+batch chain by chain and redoes in float64 only the chains that fail alone
+(``GUARD["redone"]``, each solve a host read under
+``dwavehmc.sync.fallback_redo``), so the solve returns, as the JAX
+package's QDWH eigh does, and the Metropolis step rejects the chain on its
+ΔH.  A fallback whose ``eigh`` converges takes the one call it took.
 """
 
 from __future__ import annotations
@@ -65,9 +74,11 @@ from ..utils.profiling import sync_span
 #: over the fallbacks this process's voting chains that failed the guard —
 #: by an unconverged sign iteration, by a Ritz value under the floor, by a
 #: non-finite one; and, over all solves, this process's voting chains whose
-#: float32 CholeskyQR³ broke down and were redone in float64 (``rescued``)
+#: float32 CholeskyQR³ broke down and were redone in float64 (``rescued``);
+#: and the chains whose float32 ``eigh`` (the fallback's, or the Ritz
+#: step's) did not converge and were redone in float64 (``redone``)
 GUARD = {"solves": 0, "fallbacks": 0, "resid_failed": 0, "ratio_failed": 0,
-         "nonfinite": 0, "rescued": 0}
+         "nonfinite": 0, "rescued": 0, "redone": 0}
 
 #: Newton–Schulz steps that refine a float32 sign matrix in float64 before a
 #: rescued chain's sketch (the error squares each step: 1e-6 → 1e-12)
@@ -278,7 +289,7 @@ def _ritz(M: torch.Tensor, Q: torch.Tensor):
     before its eigh."""
     T = Q.mT @ (M @ Q)
     T = _finite_or_zero(0.5 * (T + T.mT))
-    wt, Vt = symmetric_eigh(T)
+    wt, Vt = symmetric_eigh(T, GUARD)
     return wt, Q @ Vt
 
 
@@ -370,7 +381,7 @@ def diagonalize_embedding_ph_guarded(M: torch.Tensor, *, floor: float = 1e-5,
     for name, n in zip(("resid_failed", "ratio_failed", "nonfinite"),
                        counts):
         GUARD[name] += n
-    return (*diagonalize_embedding(Mg), True)
+    return (*diagonalize_embedding(Mg, GUARD), True)
 
 
 def diagonalize_embedding_ph(M: torch.Tensor, n_lift: int | None = None,

@@ -162,7 +162,8 @@ def test_guarded_uses_ph_on_healthy_spectrum():
     (w, X, Y, fb), (jw, jX, jY, jfb) = _guarded_both(M)
     assert fb is False and not bool(jfb)
     assert tph.GUARD == {"solves": 1, "fallbacks": 0, "resid_failed": 0,
-                         "ratio_failed": 0, "nonfinite": 0, "rescued": 0}
+                         "ratio_failed": 0, "nonfinite": 0, "rescued": 0,
+                         "redone": 0}
     w_ph, X_ph, _ = tph.diagonalize_embedding_ph(M)
     assert torch.equal(w, w_ph) and torch.equal(X, X_ph)
     np.testing.assert_allclose(_np(w), np.asarray(jw), atol=1e-10)
