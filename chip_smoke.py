@@ -31,7 +31,12 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    spills, shared memory and warps an SM printed, timed beside the σ-cap
    as the rotation ran it before (K4 and K3 launches, wall clock with its
    stream sync), the library's iteration and two bounds
-   (``kernel.sigma_cap``);
+   (``kernel.sigma_cap``); then K6 ``bdg_hop`` (``csrc/bdg_hop.cu``, H·U
+   through H's own entries) at the bench's, the main path's and the
+   production shapes and two ragged ones, within 4e-6 of Σ|h||u| of the
+   float64 product as its plain version is, timed beside its bound, the
+   plain version and the dense 3-multiplication product
+   (``kernel.bdg_hop``);
    times K1 alone at the bench's three shapes;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
@@ -347,6 +352,18 @@ def expected_rotations(n_sweeps: int, K: int, nt: int = NT,
     return total
 
 
+def expected_hops(n_sweeps: int, K: int, nt: int = NT,
+                  tracked: int = TRACK["tracked_iters"],
+                  refine: int = TRACK["refine_iters"],
+                  polish: int = TRACK["polish_iters"]) -> int:
+    """K6 launches of one segment of ``nt``-step sweeps with float32
+    rotations and a "highest" polish (``TRACK``): each tracked rotation and
+    each step's readout is one product by H; cheap sweeps add the refine's
+    and the polish's rotations, each phase with its readout."""
+    return expected_rotations(n_sweeps, K, nt, tracked + 1, refine + 1,
+                              polish + 1)
+
+
 # --- kernels ----------------------------------------------------------------
 
 #: K1 at ``drivers/bench.py``'s three shapes (16×16/b8, 24×24/b64,
@@ -488,7 +505,7 @@ def kernel_phases(dev, gen, power: str):
 #: the kernels the main path launches (K4 has had no caller on it since K5
 #: took the σ-cap)
 PATH_KERNELS = ("rotation_s_parts", "weighted_lorentzian_sum", "chain_sum",
-                "sigma_cap")
+                "sigma_cap", "bdg_hop")
 #: K3 and K4 (``csrc/chain_sum.cu``) at the main path's shapes first (the
 #: energies' and the σ-cap's sums over 2N = 1152 values of 8 chains, the
 #: σ-cap's (8, 1152, 1152) product), then unaligned, production-batch,
@@ -816,6 +833,90 @@ def sigma_cap_phase(dev, power: str) -> dict:
     return table
 
 
+#: K6 (``csrc/bdg_hop.cu``) at the bench's 16×16/b8, the main path's
+#: 24×24/b8 and the production 24×24/b64, then n = 50 (rows not 16-byte
+#: aligned) and 46×46 (a ragged chunk of columns): (chains, L, is the
+#: production shape)
+HOP_CASES = ((8, 16, False), (N_CHAINS, L_MAIN, False), (64, 24, True),
+             (3, 5, False), (2, 46, False))
+
+
+def _hop_inputs(dev, g, B: int, L: int):
+    """(hr, hi, ur, ui, K6's table): H with the BdG pattern of an L×L
+    lattice (random, zero off the table), U random, float32."""
+    from dwavehmc_tpu_torch.models.bdg_real import hamiltonian_columns
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.ops import kernels
+
+    cols, nnz = hamiltonian_columns(LatticeSpec(L, L))
+    table = kernels.bdg_hop_table(cols, nnz, dev)
+    n = cols.shape[0]
+    c = table.cols.long()
+    live = torch.arange(13, device=dev)[None, :] < table.nnz.long()[:, None]
+    mask = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    mask[torch.arange(n, device=dev)[:, None].expand_as(c)[live],
+         c[live]] = True
+    hr, hi, ur, ui = (torch.randn(B, n, n, generator=g, device=dev)
+                      for _ in range(4))
+    return hr * mask, hi * mask, ur, ui, (cols, nnz, table)
+
+
+def bdg_hop_phase(dev, power: str) -> dict:
+    """K6 against its plain version and the float64 product at
+    ``HOP_CASES`` (each entry within 4e-6 of Σ|h||u|), timed by CUDA-graph
+    replay beside its bound (U read and W written once, 16 n² bytes a
+    chain, at the card's memory rate), the plain version (eager) and the
+    dense 3-multiplication product the projections ran before it
+    (``ops/tracked_eigh.cmm``: three GEMMs and their adds, graph replay).
+    Inputs from a generator of their own."""
+    from dwavehmc_tpu_torch.ops import kernels
+    from dwavehmc_tpu_torch.ops.tracked_eigh import cmm
+
+    table = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+    for B, L, main in HOP_CASES:
+        hr, hi, ur, ui, (cols, nnz, hop) = _hop_inputs(dev, g, B, L)
+        n = cols.shape[0]
+        before = kernels.LAUNCHES["bdg_hop"]
+        wr, wi = kernels.bdg_hop(hr, hi, hop, ur, ui)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["bdg_hop"] == before + 1,
+              "bdg_hop wrapper did not count its launch")
+        pr, pi = kernels.bdg_hop_plain(hr, hi, hop, ur, ui)
+        H = torch.complex(hr.double(), hi.double())
+        U = torch.complex(ur.double(), ui.double())
+        want = H @ U
+        size = H.abs() @ U.abs()
+        del H, U
+        rel = max(float(((a.double() - w).abs() / size).max())
+                  for a, w in ((wr, want.real), (wi, want.imag)))
+        plain_rel = max(float(((a.double() - w).abs() / size).max())
+                        for a, w in ((pr, want.real), (pi, want.imag)))
+        del want, size, pr, pi
+        ms = cuda_ms(lambda: kernels.bdg_hop(hr, hi, hop, ur, ui), 20,
+                     graph=True)
+        plain_ms = cuda_ms(lambda: kernels.bdg_hop_plain(hr, hi, hop, ur, ui),
+                           3, warmup=1)
+        library_ms = cuda_ms(lambda: cmm(hr, hi, ur, ui), 20, graph=True)
+        bound_ms, bound_by = roofline(16.0 * B * n * n, 104.0 * B * n * n)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_rel_err=rel)
+        emit({"phase": "kernel.bdg_hop", "shape": [B, n], "L": L,
+              "plain_max_rel_err": plain_rel, "rows_per_block":
+              hop.rows.shape[1], "halo_rows": hop.halo.shape[1],
+              "bound_pct": 100.0 * bound_ms / ms, **row,
+              "launches": kernels.LAUNCHES["bdg_hop"], "gpu": power})
+        if main:
+            table["bdg_hop"] = row
+        check(rel <= 4e-6 and plain_rel <= 4e-6,
+              f"bdg_hop at {(B, n)}: {rel} (plain {plain_rel}) of Σ|h||u| "
+              "off the float64 product")
+        del hr, hi, ur, ui, wr, wi
+        torch.cuda.empty_cache()
+    return table
+
+
 def launch_geometry(n_w: int, M: int) -> dict:
     from dwavehmc_tpu_torch.ops import kernels
 
@@ -978,15 +1079,22 @@ def main_path(dev, seed: int, power: str) -> dict:
                          power)
         c1 = counts()
         k1 = c1["rotation_s_parts"] - c0["rotation_s_parts"]
+        k6 = c1["bdg_hop"] - c0["bdg_hop"]
         emit({"phase": f"main.segment_K{K}", "sweeps": n_sweeps, "Nt": NT,
               "acceptance": seg.accepted.float().mean().item(),
               "accepted": seg.accepted.int().tolist(),
               "dH": seg.dH.tolist(), "seconds": sec,
               "traj_per_s": N_CHAINS * n_sweeps / sec,
-              "k1_launches": k1, "gpu": power})
+              "k1_launches": k1, "k6_launches": k6, "gpu": power})
         check(k1 == expected_rotations(n_sweeps, K),
               f"K{K} segment: {k1} K1 launches, schedule implies "
               f"{expected_rotations(n_sweeps, K)}")
+        check(k6 == expected_hops(n_sweeps, K),
+              f"K{K} segment: {k6} K6 launches, schedule implies "
+              f"{expected_hops(n_sweeps, K)}")
+        check(c1["hu_dense"] == c0["hu_dense"],
+              f"K{K} segment: {c1['hu_dense'] - c0['hu_dense']} float32 "
+              "IEEE products by H left dense")
         check(c1["weighted_lorentzian_sum"] == c0["weighted_lorentzian_sum"],
               "a segment launched K2")
         _finite(seg.observables, f"segment_K{K}.observables")
@@ -4043,6 +4151,7 @@ def main(argv=None) -> int:
     table = kernel_phases(dev, gen, power)
     table.update(chain_kernel_phases(dev, power))
     table.update(sigma_cap_phase(dev, power))
+    table.update(bdg_hop_phase(dev, power))
     anchor_phases(dev, gen, power)
     ph_draws_phase(dev, power)
     diverged_chain_phase(dev, power)
@@ -4147,6 +4256,11 @@ def main(argv=None) -> int:
              source="dwavehmc_tpu_torch/csrc/sigma_cap.cu",
              replaces="dwavehmc_tpu/ops/tracked_eigh.py:49-65",
              launches=launches["sigma_cap"], **table["sigma_cap"]),
+        # K6 replaces no TPU kernel: XLA's dense H·U multiplies H's zeros
+        dict(name="bdg_hop", route="cuda",
+             source="dwavehmc_tpu_torch/csrc/bdg_hop.cu",
+             replaces="dwavehmc_tpu/ops/tracked_eigh.py:112",
+             launches=launches["bdg_hop"], **table["bdg_hop"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(power, flush=True)

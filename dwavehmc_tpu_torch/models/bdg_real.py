@@ -25,8 +25,17 @@ import numpy as np
 import torch
 
 from ..utils.profiling import sync_span
-from .bdg import _pairing_tensors, _scatter_add, static_hamiltonian
+from .bdg import (
+    _pairing_tensors,
+    _scatter_add,
+    pairing_scatter_indices,
+    static_hamiltonian,
+)
 from .lattice import LatticeSpec, neighbor_tables
+
+#: the most columns a row of H holds: the diagonal, 4 nearest and 4
+#: next-nearest neighbours in its Nambu block, 4 bond partners in the other
+ROW_COLUMNS = 13
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,6 +144,34 @@ def assemble_parts(lat: LatticeSpec, Hs_real: torch.Tensor,
     Hi[:, :N, N:] += TRi
     Hi[:, N:, :N] += -TRi.mT
     return Hr, Hi
+
+
+@functools.lru_cache(maxsize=None)
+def hamiltonian_columns(lat: LatticeSpec) -> tuple[np.ndarray, np.ndarray]:
+    """(cols (2N, 13), nnz (2N,)) int32: the distinct columns, ascending,
+    where row r of ``assemble_parts``' Hr or Hi can be nonzero, in
+    ``cols[r, :nnz[r]]``; the rest of the row repeats its last column.
+    Row i < N (particle block) holds i, its nearest and next-nearest
+    neighbours, and N + j for every j that the pairing scatter
+    (``models/bdg.pairing_scatter_indices``) puts in row i of TR; row N + j
+    (hole block) the same in its block, and every i whose TR row holds j.
+    Neighbours that coincide on a small torus count once."""
+    nn, nnn = neighbor_tables(lat)
+    N = lat.n_sites
+    prow, pcol = pairing_scatter_indices(lat)
+    other = [set() for _ in range(2 * N)]
+    for i, j in zip(prow.tolist(), pcol.tolist()):
+        other[i].add(N + j)          # TR at (i, N + j)
+        other[N + j].add(i)          # TR† at (N + j, i)
+    cols = np.empty((2 * N, ROW_COLUMNS), dtype=np.int32)
+    nnz = np.empty(2 * N, dtype=np.int32)
+    for r in range(2 * N):
+        base, i = (r // N) * N, r % N
+        row = sorted({r, *(base + nn[i]).tolist(), *(base + nnn[i]).tolist(),
+                      *other[r]})
+        nnz[r] = len(row)
+        cols[r] = row + [row[-1]] * (ROW_COLUMNS - len(row))
+    return cols, nnz
 
 
 #: single-precision dtypes ``symmetric_eigh`` widens for small matrices

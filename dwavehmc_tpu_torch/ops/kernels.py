@@ -17,6 +17,10 @@ K4     ``chain_matvec``            ``csrc/chain_sum.cu``; the complex
 K5     ``spectral_norm_est``       ``csrc/sigma_cap.cu``; the σ-cap's power
        (launches: ``sigma_cap``)   iteration in one launch (no TPU kernel:
                                    XLA's ``matmul`` and ``jnp.sum``)
+K6     ``bdg_hop``                 ``csrc/bdg_hop.cu``; W = H·U through the
+                                   columns where a row of the BdG H can be
+                                   nonzero (no TPU kernel: XLA's dense
+                                   ``matmul``, which multiplies H's zeros)
 =====  ==========================  ==========================================
 
 K3 and K4 exist so that a chain's sweep gives the same bits whatever batch
@@ -43,6 +47,10 @@ write each other's files.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises.  There is no fallback between the two.  Each
 kernel launch adds one to ``LAUNCHES[name]``; nothing else touches the count.
+One entry counts no kernel: ``LAUNCHES["hu_dense"]`` counts the float32
+IEEE products by H on the card that ``ops/tracked_eigh._project_T`` left to
+the dense product (its caller gave no K6 table), so that K6's launches over
+both are the share of those products K6 took.
 """
 
 from __future__ import annotations
@@ -58,12 +66,13 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu", "sigma_cap.cu",
-           "sigma_cap_f64.cu")
+           "sigma_cap_f64.cu", "bdg_hop.cu")
 #: headers the sources include (part of the build's key)
 HEADERS = ("halving_tree.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -71,7 +80,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
 LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0,
-            "chain_sum": 0, "chain_matvec": 0, "sigma_cap": 0}
+            "chain_sum": 0, "chain_matvec": 0, "sigma_cap": 0,
+            "bdg_hop": 0, "hu_dense": 0}
 
 _lib = None
 
@@ -173,6 +183,8 @@ def _load(path: Path):
     for name in ("dwh_sigma_cap_attrs_f32", "dwh_sigma_cap_attrs_f64"):
         getattr(lib, name).argtypes = [i, i, i, p]
         getattr(lib, name).restype = i
+    lib.dwh_bdg_hop.argtypes = [p] * 11 + [i] * 6 + [p]
+    lib.dwh_bdg_hop.restype = i
     return lib
 
 
@@ -684,3 +696,148 @@ def spectral_norm_est(sr, si, iters: int = 3):
     if sr.device.type == "cpu":
         return spectral_norm_est_plain(sr, si, iters)
     return spectral_norm_est_cuda(sr.contiguous(), si.contiguous(), iters)
+
+
+# --- K6: W = H·U through H's own entries --------------------------------------
+
+#: the table's width: the most columns a row of the BdG H holds (the
+#: diagonal, 4 nearest and 4 next-nearest neighbours in its Nambu block, 4
+#: bond partners in the other); ``csrc/bdg_hop.cu``'s ``kK``
+BDG_HOP_K = 13
+#: rows a K6 CTA produces (the particle and hole rows of half as many
+#: sites), at most 64: a CTA is 8 threads a row.  16 was the fastest of 16,
+#: 32 and 64 on an H100 at (64, 1152) and (2, 4232) (PERF.md, K6's tuning);
+#: ``hop_plan`` halves it where a block's halo outgrows shared memory
+BDG_HOP_ROWS = 16
+#: shared memory a K6 CTA may use: two chunks of its halo's 32 columns, real
+#: and imaginary, 512 bytes a halo row, and the halo's rows, 4 bytes each
+BDG_HOP_SMEM_MAX = 232448
+
+
+class HopTable(NamedTuple):
+    """K6's table of one lattice on one device, int32 throughout.  Row r of
+    H (n = 2N rows) can be nonzero at ``cols[r, :nnz[r]]`` only (distinct,
+    ascending); the rest of the row's entries repeat its last column and
+    weigh zero.  The launch plan: CTA row block j produces rows
+    ``rows[j]`` (sites s and their partners N + s; -1 past the last) and
+    reads the rows ``halo[j]`` of U (-1 past the last), where
+    ``lidx[r, k]`` is the place of ``cols[r, k]`` in its block's halo."""
+
+    cols: torch.Tensor     # (n, K)
+    nnz: torch.Tensor      # (n,)
+    rows: torch.Tensor     # (blocks, R)
+    halo: torch.Tensor     # (blocks, hmax)
+    lidx: torch.Tensor     # (n, K)
+
+
+def hop_plan(cols: np.ndarray, nnz: np.ndarray) -> dict:
+    """K6's row blocks for the table (cols, nnz) of an H of n = 2N rows:
+    block j holds sites [j·R/2, (j+1)·R/2) of the particle block and their
+    partners in the hole block, which read the same sites; its halo is the
+    distinct columns its rows hold.  R is ``BDG_HOP_ROWS``, halved until the
+    largest halo fits a CTA's shared memory.  numpy arrays ``rows`` (the
+    block's sites in its first half, their partners in its second, each
+    half padded with -1), ``halo``, ``lidx``."""
+    n = cols.shape[0]
+    if n % 2:
+        raise ValueError(f"bdg_hop: n = {n} rows, must be even")
+    half, R = n // 2, BDG_HOP_ROWS
+    while True:
+        blocks, halos = [], []
+        for s0 in range(0, half, R // 2):
+            sites = np.arange(s0, min(s0 + R // 2, half))
+            rows = np.concatenate([sites, sites + half])
+            blocks.append(rows)
+            halos.append(np.unique(np.concatenate(
+                [cols[r, :nnz[r]] for r in rows])))
+        hmax = max(len(h) for h in halos)
+        if (512 + 4) * hmax <= BDG_HOP_SMEM_MAX or R == 2:
+            break
+        R //= 2
+    rows = np.full((len(blocks), R), -1, dtype=np.int32)
+    halo = np.full((len(blocks), hmax), -1, dtype=np.int32)
+    lidx = np.zeros(cols.shape, dtype=np.int32)
+    for j, (r, h) in enumerate(zip(blocks, halos)):
+        k = len(r) // 2
+        rows[j, :k], rows[j, R // 2:R // 2 + k] = r[:k], r[k:]
+        halo[j, :len(h)] = h
+        lidx[r] = np.searchsorted(h, cols[r])
+    return {"rows": rows, "halo": halo, "lidx": lidx}
+
+
+def bdg_hop_table(cols: np.ndarray, nnz: np.ndarray, device) -> HopTable:
+    """The ``HopTable`` of (cols (n, K), nnz (n,)) on ``device``, with its
+    launch plan (``hop_plan``).  The copies from host memory wait for the
+    device: build it once a lattice and device, outside a graph capture."""
+    if cols.shape[1] != BDG_HOP_K:
+        raise ValueError(f"bdg_hop: a table of {cols.shape[1]} columns a "
+                         f"row, expected {BDG_HOP_K}")
+    plan = hop_plan(cols, nnz)
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                    dtype=torch.int32, device=device)
+    return HopTable(i32(cols), i32(nnz), i32(plan["rows"]),
+                    i32(plan["halo"]), i32(plan["lidx"]))
+
+
+def bdg_hop_plain(hr, hi, table: HopTable, ur, ui):
+    """Plain PyTorch K6: W = (hr + i·hi)(ur + i·ui) for (B, n, n) tensors,
+    from the coefficients of H at the table's columns (gathered, the padded
+    ones zero) and the rows of U they multiply, summed term by term in the
+    table's order, each term in the 4-multiplication form:
+    (wr + a·u) − c·v and (wi + a·v) + c·u."""
+    cols = table.cols.long()
+    n, K = cols.shape
+    r = torch.arange(n, device=hr.device)[:, None]
+    live = (torch.arange(K, device=hr.device)[None, :]
+            < table.nnz.long()[:, None])
+    cr = torch.where(live, hr[:, r, cols], 0.0)
+    ci = torch.where(live, hi[:, r, cols], 0.0)
+    wr = torch.zeros_like(ur)
+    wi = torch.zeros_like(ui)
+    for k in range(K):
+        a, c = cr[..., k, None], ci[..., k, None]
+        u, v = ur[:, cols[:, k]], ui[:, cols[:, k]]
+        wr = (wr + a * u) - c * v
+        wi = (wi + a * v) + c * u
+    return wr, wi
+
+
+def bdg_hop_cuda(hr, hi, table: HopTable, ur, ui):
+    """Launch K6 on float32 CUDA tensors hr/hi/ur/ui (B, n, n) with a
+    ``HopTable`` of n rows on their device."""
+    B, n = ur.shape[0], ur.shape[-1]
+    dev = ur.device
+    for name, t in (("hr", hr), ("hi", hi), ("ur", ur), ("ui", ui)):
+        _check(name, t, (B, n, n), dev)
+    blocks, R = table.rows.shape
+    hmax = table.halo.shape[1]
+    for name, t, shape in (("cols", table.cols, (n, BDG_HOP_K)),
+                           ("nnz", table.nnz, (n,)),
+                           ("rows", table.rows, (blocks, R)),
+                           ("halo", table.halo, (blocks, hmax)),
+                           ("lidx", table.lidx, (n, BDG_HOP_K))):
+        _check(name, t, shape, dev, torch.int32)
+    wr = torch.empty_like(ur)
+    wi = torch.empty_like(ui)
+    if B == 0 or n == 0:
+        return wr, wi
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (hr, hi, ur, ui, wr, wi))
+    err = _library().dwh_bdg_hop(
+        hr.data_ptr(), hi.data_ptr(), ur.data_ptr(), ui.data_ptr(),
+        wr.data_ptr(), wi.data_ptr(), table.cols.data_ptr(),
+        table.nnz.data_ptr(), table.rows.data_ptr(), table.halo.data_ptr(),
+        table.lidx.data_ptr(), B, n, blocks, R, hmax, int(vec), _stream(dev))
+    _raise_on(err, "bdg_hop")
+    LAUNCHES["bdg_hop"] += 1
+    return wr, wi
+
+
+def bdg_hop(hr, hi, table: HopTable, ur, ui):
+    """K6 dispatch: H·U for the BdG H = hr + i·hi whose nonzeros lie in
+    ``table``'s columns.  CPU tensors → plain version in their dtype; CUDA
+    tensors → the kernel (float32; any other raises)."""
+    if ur.device.type == "cpu":
+        return bdg_hop_plain(hr, hi, table, ur, ui)
+    c = lambda x: x.contiguous()  # noqa: E731
+    return bdg_hop_cuda(c(hr), c(hi), table, c(ur), c(ui))

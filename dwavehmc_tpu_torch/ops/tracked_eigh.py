@@ -21,16 +21,33 @@ as IEEE float32 products on the card (TF32 is off, see the package
 docstring); "high" (three TF32 products per product) and "default" (one)
 run inside ``utils/precision.matmul_precision`` (the polish rotations of
 ``sampler/hmc_real.tracked_leapfrog`` at ``polish_precision="high"``).
+
+The factor W = H·U of T = U†(HU) is one launch of K6
+(``ops/kernels.bdg_hop``), which reads H's own entries, where the caller
+passes H's table (``hop``, from ``hop_table``) and the product is a float32
+IEEE one (float32 operands at ``None`` or "highest"); the bf16 rotations
+and the TF32 precisions keep the dense product (``_h_times``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..models.bdg_real import diagonalize_embedding
+from ..models.bdg_real import diagonalize_embedding, hamiltonian_columns
+from ..models.lattice import LatticeSpec
 from ..utils.precision import matmul_precision, product
 from ..utils.profiling import sync_span
-from .kernels import chain_sum, rotation_s_parts, spectral_norm_est
+from .kernels import (
+    LAUNCHES,
+    HopTable,
+    bdg_hop,
+    bdg_hop_table,
+    chain_sum,
+    rotation_s_parts,
+    spectral_norm_est,
+)
 
 #: per-entry rotation cap (exact 2×2 Jacobi angle is ≤ π/4; damping keeps
 #: the simultaneous all-pairs update contractive)
@@ -82,9 +99,34 @@ def _newton_schulz(ur, ui, precision=None):
     return cmm(ur, ui, mr, mi, precision)
 
 
-def _project_T(hr, hi, ur, ui, precision=None):
-    """T = U†HU and diagnostics: (tr, ti, d, offdiag_inf per chain)."""
-    wr, wi = cmm(hr, hi, ur, ui, precision)
+@functools.lru_cache(maxsize=None)
+def hop_table(lat: LatticeSpec, device: torch.device) -> HopTable:
+    """K6's table of ``lat``'s H on ``device``
+    (``models/bdg_real.hamiltonian_columns`` and its launch plan), copied
+    once a lattice and device: the copy from pageable host memory waits
+    for the stream, a host sync, and a CUDA graph cannot hold it."""
+    with sync_span("hop_table"):
+        return bdg_hop_table(*hamiltonian_columns(lat), device)
+
+
+def _h_times(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
+    """W = H·U.  A float32 IEEE product (float32 operands, ``precision``
+    None or "highest") with H's table ``hop`` is K6; any other takes
+    ``cmm``, and a float32 IEEE one on the card adds one to
+    ``LAUNCHES["hu_dense"]``."""
+    ieee32 = (precision in (None, "highest")
+              and hr.dtype == ur.dtype == torch.float32)
+    if ieee32 and hop is not None:
+        return bdg_hop(hr, hi, hop, ur, ui)
+    if ieee32 and ur.is_cuda:
+        LAUNCHES["hu_dense"] += 1
+    return cmm(hr, hi, ur, ui, precision)
+
+
+def _project_T(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
+    """T = U†HU and diagnostics: (tr, ti, d, offdiag_inf per chain); H·U
+    through ``_h_times``."""
+    wr, wi = _h_times(hr, hi, ur, ui, precision, hop)
     tr, ti = cmm_dag(ur, ui, wr, wi, precision)
     d = torch.diagonal(tr, dim1=-2, dim2=-1)
     mask = 1.0 - _eye(d.shape[-1], tr)
@@ -101,17 +143,18 @@ def rotation_matrix_parts(tr, ti, d, smax=S_MAX):
 
 
 def tracked_step(hr, hi, ur, ui, precision=None, ns_steps=2, rot_dtype=None,
-                 rot_scheme="ns"):
+                 rot_scheme="ns", hop: HopTable | None = None):
     """One refinement iteration: rotate toward the eigenbasis.
 
     ``rot_dtype`` (e.g. ``torch.bfloat16``): storage dtype of the matmul
     operands; the S construction runs in float32.  ``rot_scheme``: "ns" =
     U(I+S), "exp2" = U(I+S+S²/2); ``ns_steps`` Newton–Schulz steps follow.
+    ``hop``: H's K6 table (``_h_times``).
     """
     if rot_dtype is not None:
         hr, hi = hr.to(rot_dtype), hi.to(rot_dtype)
         ur, ui = ur.to(rot_dtype), ui.to(rot_dtype)
-    tr, ti, d, _ = _project_T(hr, hi, ur, ui, precision)
+    tr, ti, d, _ = _project_T(hr, hi, ur, ui, precision, hop)
     if rot_dtype is not None:
         tr, ti = tr.to(torch.float32), ti.to(torch.float32)
         d = d.to(torch.float32)
@@ -155,14 +198,16 @@ def tracked_eigh_nofallback(hr, hi, ur0, ui0, *, n_iter: int = 6,
                             precision=None, eval_precision=None,
                             ns_steps: int = 2, rot_dtype=None,
                             eval_correction: bool = False,
-                            rot_scheme: str = "ns"):
+                            rot_scheme: str = "ns",
+                            hop: HopTable | None = None):
     """``n_iter`` tracked rotations from U₀, then the readout T = U†HU at
     ``eval_precision`` (defaults to ``precision``), each product at its
     precision (``utils/precision.matmul_precision``).  Returns (evals, Ur,
     Ui, off-diagonal residual per chain).  The eigenvalues are NOT sorted:
     every use during a trajectory is order-independent, and the exact
     anchor restores sorted order.  Under ``rot_dtype`` the loop carry is
-    cast once and the basis is cast back to the input dtype."""
+    cast once and the basis is cast back to the input dtype.  ``hop``: H's
+    K6 table, for the float32 IEEE products by H (``_h_times``)."""
     cdt = ur0.dtype
     ur, ui = ur0, ui0
     if rot_dtype is not None:
@@ -171,12 +216,12 @@ def tracked_eigh_nofallback(hr, hi, ur0, ui0, *, n_iter: int = 6,
         for _ in range(n_iter):
             ur, ui = tracked_step(hr, hi, ur, ui, precision=precision,
                                   ns_steps=ns_steps, rot_dtype=rot_dtype,
-                                  rot_scheme=rot_scheme)
+                                  rot_scheme=rot_scheme, hop=hop)
     if rot_dtype is not None:
         ur, ui = ur.to(cdt), ui.to(cdt)
     readout = precision if eval_precision is None else eval_precision
     with matmul_precision(readout, ur0.device):
-        tr, ti, d, res = _project_T(hr, hi, ur, ui, readout)
+        tr, ti, d, res = _project_T(hr, hi, ur, ui, readout, hop)
     if eval_correction:
         d = rayleigh_corrected_evals(tr, ti, d)
     return d, ur, ui, res

@@ -41,7 +41,7 @@ from ..ops.forces_real import hmc_forces_real
 from ..ops.kernels import chain_sum
 from ..ops.ph_eigh import diagonalize_embedding_ph
 from ..ops.spectral import softplus
-from ..ops.tracked_eigh import tracked_eigh_nofallback
+from ..ops.tracked_eigh import hop_table, tracked_eigh_nofallback
 from ..utils.device import resolve_device
 from ..utils.profiling import span, spanned, sync_span
 from .hmc import SweepInfo, _finite_or_zero, sweep_draws
@@ -218,7 +218,8 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
     keep two Newton–Schulz steps and the carry dtype, as in the JAX package.
     ``polish_precision="high"`` runs the polish rotations' products as
     three TF32 passes on the card; their eigenvalue readout stays IEEE
-    ("highest").
+    ("highest").  Every tracked solve gets H's K6 table, so its float32
+    IEEE products by H go through K6 (``ops/tracked_eigh._h_times``).
     """
     beta, J, mass = params.beta, params.J, params.mass
     rdt = state.evals.dtype
@@ -228,6 +229,7 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
 
     Hs_real = static_hamiltonian(lat, params.t, params.tp, params.mu,
                                  state.disorder)
+    hop = hop_table(lat, dev)
     # a step from the host is copied from pageable memory: the copy waits
     # for the stream, a host sync
     on_dev = isinstance(dt, torch.Tensor) and dt.device == dev
@@ -255,7 +257,8 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                                                    n_iter=tracked_iters,
                                                    ns_steps=ns_steps,
                                                    rot_dtype=rot_dtype,
-                                                   rot_scheme=rot_scheme)
+                                                   rot_scheme=rot_scheme,
+                                                   hop=hop)
         with span("dwavehmc.forces"):
             F_re, F_im, _, _ = hmc_forces_real(lat, dre, dim_, e, X, Y,
                                                beta, J)
@@ -275,14 +278,14 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                     hr, hi, X, Y, n_iter=refine_iters,
                     eval_precision="highest" if polish_iters == 0 else None,
                     eval_correction=polish_correction and polish_iters == 0,
-                    rot_scheme=rot_scheme)
+                    rot_scheme=rot_scheme, hop=hop)
         if polish_iters > 0:
             with span("dwavehmc.tracked_eigh"):
                 e, X, Y, res_end = tracked_eigh_nofallback(
                     hr, hi, X, Y, n_iter=polish_iters,
                     precision=polish_precision, eval_precision="highest",
                     eval_correction=polish_correction,
-                    rot_scheme=rot_scheme)
+                    rot_scheme=rot_scheme, hop=hop)
 
     return Proposal(dre, dim_, pre, pim, pi_re0, pi_im0, uniforms,
                     torch.stack(res_all).amax(dim=0), e, X, Y, res_end)

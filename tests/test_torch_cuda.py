@@ -785,3 +785,100 @@ def test_guarded_ph_anchor_rescues_a_broken_chain_on_the_card(cuda,
     w64 = torch.linalg.eigvalsh(M.double())[..., ::2]
     err = (w.double() - w64).abs().amax(-1)
     assert float(err[1]) <= float(err[[0, 2]].max())
+
+
+def _hop_case(B, L, device, seed=0, offset=0):
+    """(hr, hi, ur, ui, K6's table) on ``device``: a random H with the BdG
+    pattern of an L×L lattice (zero off the table) and a random U, float32,
+    each tensor ``offset`` floats into its storage (1: rows that are not
+    16-byte aligned)."""
+    from dwavehmc_tpu_torch.models.bdg_real import hamiltonian_columns
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+
+    cols, nnz = hamiltonian_columns(LatticeSpec(L, L))
+    table = kernels.bdg_hop_table(cols, nnz, device)
+    n = cols.shape[0]
+    c = table.cols.long()
+    live = (torch.arange(13, device=device)[None, :]
+            < table.nnz.long()[:, None])
+    mask = torch.zeros((n, n), dtype=torch.bool, device=device)
+    mask[torch.arange(n, device=device)[:, None].expand_as(c)[live],
+         c[live]] = True
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(keep):
+        x = torch.randn(B * n * n + offset, generator=g, device=device)
+        x = x[offset:].view(B, n, n)
+        return x * mask if keep else x
+
+    return randn(True), randn(True), randn(False), randn(False), table
+
+
+@pytest.mark.parametrize("B,L,offset", [(8, 16, 0), (64, 24, 0),
+                                        (3, 5, 0), (2, 46, 0), (2, 16, 1)])
+def test_bdg_hop_kernel_matches_plain(cuda, B, L, offset):
+    """K6 at the bench's (8, 512) and the production (64, 1152), at n = 50
+    (rows not 16-byte aligned), at 46×46 (n = 4232: a ragged last chunk of
+    columns) and on misaligned storage: within 4e-6 of Σ|h||u| of the
+    float64 product, as the plain version is (both sum 13 float32 terms;
+    the kernel fuses each multiply-add)."""
+    hr, hi, ur, ui, table = _hop_case(B, L, cuda, offset=offset)
+    before = kernels.LAUNCHES["bdg_hop"]
+    wr, wi = kernels.bdg_hop(hr, hi, table, ur, ui)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bdg_hop"] == before + 1
+    pr, pi = kernels.bdg_hop_plain(hr, hi, table, ur, ui)
+    H = torch.complex(hr.double(), hi.double())
+    U = torch.complex(ur.double(), ui.double())
+    want = H @ U
+    size = H.abs() @ U.abs()
+    del H, U
+    for got, plain, ref in ((wr, pr, want.real), (wi, pi, want.imag)):
+        assert bool(((got.double() - ref).abs() <= 4e-6 * size).all())
+        assert bool(((plain.double() - ref).abs() <= 4e-6 * size).all())
+
+
+def test_bdg_hop_in_a_cuda_graph(cuda):
+    """K6 captured alone replays the eager call's bits on new inputs; a
+    period of the fast mix at 16×16 with 8 chains, its cheap sweeps
+    replayed as ``parallel/cheap_graph``'s graph, counts every float32
+    product by H as K6 through the replays (17 a cheap sweep: 6 readouts,
+    refine 6 + 1, polish 3 + 1; 6 in the anchored sweep) and none left
+    dense."""
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+    from dwavehmc_tpu_torch.models.params import make_params
+    from dwavehmc_tpu_torch.parallel import cheap_graph, ensemble
+
+    hr, hi, ur, ui, table = _hop_case(4, 16, cuda, seed=2)
+    inputs = [x.clone() for x in (hr, hi, ur, ui)]
+    kernels.bdg_hop(*inputs[:2], table, *inputs[2:])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.bdg_hop(*inputs[:2], table, *inputs[2:])
+    for x, y in zip(inputs, (hr, hi, ur, ui)):
+        x.copy_(y.flip(0))
+    graph.replay()
+    want = kernels.bdg_hop(hr.flip(0), hi.flip(0), table, ur.flip(0),
+                           ui.flip(0))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+    lat, B, K = LatticeSpec(16, 16), 8, 10
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p = make_params(beta=10.0, device=cuda, t=1.0, tp=-0.35, mu=-1.08, W=1.0,
+                    n_imp=0.05, J=0.8, mass=1.0)
+    s = ensemble.init_ensemble_real(lat, p, g, B, n_imp=0.05,
+                                    exact_solver="ph", device=cuda)
+    cheap_graph.reset_graphs()
+    replays = cheap_graph.COUNTS["replays"]
+    kernels.reset_launches()
+    ensemble.run_segment_tracked(
+        lat, p, s, K, 6, 0.148, False, anchor_every=K, generator=g,
+        tracked_iters=6, refine_iters=6, polish_iters=3, ns_steps=1,
+        rot_dtype=torch.bfloat16, polish_precision="highest",
+        rot_scheme="exp2", exact_solver="ph")
+    torch.cuda.synchronize()
+    assert cheap_graph.COUNTS["replays"] == replays + K - 2
+    assert kernels.LAUNCHES["bdg_hop"] == (K - 1) * 17 + 6
+    assert kernels.LAUNCHES["hu_dense"] == 0
+    cheap_graph.reset_graphs()

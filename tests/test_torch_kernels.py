@@ -93,6 +93,24 @@ def test_lorentzian_plain_chunking_matches_dense_oracle(chunk):
     np.testing.assert_allclose(_np(got), want, rtol=1e-12)
 
 
+def _hop_inputs(L=3, batch=2):
+    """(hr, hi, ur, ui, K6's table) of a random H with the BdG pattern of
+    an L×L lattice and a random U, float32 on the CPU."""
+    from dwavehmc_tpu_torch.models.bdg_real import hamiltonian_columns
+    from dwavehmc_tpu_torch.models.lattice import LatticeSpec
+
+    cols, nnz = hamiltonian_columns(LatticeSpec(L, L))
+    n = cols.shape[0]
+    rng = np.random.default_rng(L)
+    mask = np.zeros((n, n), dtype=bool)
+    for r in range(n):
+        mask[r, cols[r, :nnz[r]]] = True
+    hr, hi, ur, ui = (torch.as_tensor(
+        rng.normal(size=(batch, n, n)) * (mask if k < 2 else 1.0),
+        dtype=torch.float32) for k in range(4))
+    return hr, hi, ur, ui, kernels.bdg_hop_table(cols, nnz, "cpu")
+
+
 def test_cpu_dispatch_never_counts_a_launch():
     kernels.reset_launches()
     tr, ti, d = (torch.as_tensor(x) for x in _rot_inputs(8, np.float32))
@@ -102,10 +120,13 @@ def test_cpu_dispatch_never_counts_a_launch():
     kernels.chain_sum(tr)
     kernels.chain_matvec(tr, ti, d, d)
     kernels.spectral_norm_est(tr, ti)
+    hr, hi, ur, ui, table = _hop_inputs()
+    kernels.bdg_hop(hr, hi, table, ur, ui)
     assert kernels.LAUNCHES == {"rotation_s_parts": 0,
                                 "weighted_lorentzian_sum": 0,
                                 "chain_sum": 0, "chain_matvec": 0,
-                                "sigma_cap": 0}
+                                "sigma_cap": 0, "bdg_hop": 0,
+                                "hu_dense": 0}
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -121,6 +142,9 @@ def test_launchers_refuse_cpu_tensors():
         kernels.chain_matvec_cuda(tr, ti, d, d)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.spectral_norm_est_cuda(tr, ti)
+    hr, hi, ur, ui, table = _hop_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bdg_hop_cuda(hr, hi, table, ur, ui)
 
 
 def test_build_names_its_files_per_process(tmp_path, monkeypatch):
