@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with one CUDA device.  It
 
-1. builds both CUDA kernels from ``dwavehmc_tpu_torch/csrc`` with nvcc;
+1. builds the CUDA kernels (K1, K2, K3, K5, K6) from
+   ``dwavehmc_tpu_torch/csrc`` with nvcc, one library;
 2. checks each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, at BASELINE config 5's (32×32: K1 at (2, 2048,
    2048), K2 at (2, 2556, 4194304) and, on the narrow geometry, (2, 100,
@@ -16,21 +17,19 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    host's launch rate); holds K2 on the σ(ω) path's signed weights against
    a float64 plain run (error at most 4× the float32 plain version's, or
    1e-5);
-   then builds K3 ``chain_sum`` and K4 ``chain_matvec`` (the sweep's
-   per-chain sums in one halving tree) and holds each against its plain
-   version at the main path's shapes and others, float32 and float64, up to
-   rows past one block's registers (K3 to 40000 values, K4 to n = 8464):
-   they must be bit-equal, and a block of a batch alone must get the
-   batch's bits; times each beside its plain version and the one PyTorch
-   call that computes the same function; then K5 ``spectral_norm_est``
+   then K3 ``chain_sum`` (the sweep's per-chain sums in one halving tree)
+   against its plain version at the main path's shapes and others, float32
+   and float64, up to rows past one block's registers (40000 values): they
+   must be bit-equal, and a block of a batch alone must get the batch's
+   bits; times it beside its plain version and ``torch.sum``; then K5
+   ``spectral_norm_est``
    (``csrc/sigma_cap.cu``, the σ-cap's power iteration in one launch) at
    the σ-cap's shapes from 8 × 512 to 1 × 8464 float64 (the production
    scan's 24 × 1152 among them), bit-equal to its plain version under its
    own plan, each mode's plan and with −0.0 entries in S, block-alone
    invariant, one device operation a call, each plan's mode, registers,
-   spills, shared memory and warps an SM printed, timed beside the σ-cap
-   as the rotation ran it before (K4 and K3 launches, wall clock with its
-   stream sync), the library's iteration and two bounds
+   spills, shared memory and warps an SM printed, timed beside the
+   library's iteration and two bounds
    (``kernel.sigma_cap``); then K6 ``bdg_hop`` (``csrc/bdg_hop.cu``, H·U
    through H's own entries) at the bench's, the main path's and the
    production shapes and two ragged ones, within 4e-6 of Σ|h||u| of the
@@ -144,7 +143,7 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    disorder and Δ, accepts, dH), and against the one-process batch the
    initial ensemble, disorder and decisions equal, and, in each dtype in
    which every call the sweep makes gives a block the batch's bits (the
-   probe ``_batch_invariance``; K3, K4 and K5 must), every saved array
+   probe ``_batch_invariance``; K3 and K5 must), every saved array
    bit-equal; the calls that are not are named (``config5.mesh_exec``);
    config 5's first therm sweep on the JAX run's draws
    (``tests/data/config5_replay_32x32.npz``, two 32×32 chains) in float64
@@ -176,11 +175,11 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    ``BENCH_LEG_CUT``): every mode and leg finite traj/s and an acceptance
    in [0, 1], no error, K1 on its schedule, no K2, the PH guard's
    fallbacks and rescues reported (``bench``);
-15. drives the tracked path past K4's one-block rows (``tracked.large_lattice``):
+15. drives the tracked path at 46×46 (``tracked.large_lattice``):
    2 chains of 46×46 (2N = 4232) at the production couplings, the guarded
    PH init, a 2-sweep segment with K = 2 (Nt = 2, exp2) and one transport
-   pass: every output finite, K1 on its schedule, K5 once a rotation and
-   no K4, K2 twice, the allocator's peak and the seconds reported; then
+   pass: every output finite, K1 on its schedule, K5 once a rotation,
+   K2 twice, the allocator's peak and the seconds reported; then
    the graft entry: ``graft_entry.entry()`` on the card, its sweep twice
    (``graft.entry``), and ``dryrun_multichip(2)`` with both ranks on the
    card under its own limit, each rank's launches in its report
@@ -502,101 +501,69 @@ def kernel_phases(dev, gen, power: str):
     return table
 
 
-#: the kernels the main path launches (K4 has had no caller on it since K5
-#: took the σ-cap)
+#: the kernels the main path launches
 PATH_KERNELS = ("rotation_s_parts", "weighted_lorentzian_sum", "chain_sum",
                 "sigma_cap", "bdg_hop")
-#: K3 and K4 (``csrc/chain_sum.cu``) at the main path's shapes first (the
-#: energies' and the σ-cap's sums over 2N = 1152 values of 8 chains, the
-#: σ-cap's (8, 1152, 1152) product), then unaligned, production-batch,
-#: config-5 float64 and the longest rows one block holds in registers, then
-#: rows past them, which fold their upper levels as they load (K3 past
-#: 16384: 2N = 16562 at 91×91; K4 past 4096: 2N = 4232 at 46×46, 8464 at
-#: 92×92): (name, rows or chains, length, dtype, is the main path's)
-CHAIN_CASES = (("chain_sum", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
-               ("chain_sum", 3, 7, "float32", False),
-               ("chain_sum", 64, 2 * L_MAIN * L_MAIN, "float32", False),
-               ("chain_sum", N_CHAINS * 1152, 1152, "float32", False),
-               ("chain_sum", 8, 2 * C5_L * C5_L, "float64", False),
-               ("chain_sum", 2, 16384, "float64", False),
-               ("chain_sum", 2, 16385, "float32", False),
-               ("chain_sum", 3, 16562, "float64", False),
-               ("chain_sum", 2, 40000, "float32", False),
-               ("chain_matvec", N_CHAINS, 2 * L_MAIN * L_MAIN, "float32",
-                True),
-               ("chain_matvec", 3, 5, "float32", False),
-               ("chain_matvec", 8, 2 * C5_L * C5_L, "float64", False),
-               ("chain_matvec", 1, 4096, "float64", False),
-               ("chain_matvec", 1, 4097, "float32", False),
-               ("chain_matvec", 2, 4232, "float32", False),
-               ("chain_matvec", 2, 4608, "float32", False),
-               ("chain_matvec", 1, 8464, "float64", False))
+#: K3 (``csrc/chain_sum.cu``) at the main path's shape first (the
+#: energies' sums over 2N = 1152 values of 8 chains), then unaligned,
+#: production-batch, config-5 float64 and the longest rows one block holds
+#: in registers, then rows past them, which fold their upper levels as they
+#: load (past 16384: 2N = 16562 at 91×91): (rows, length, dtype, is the main
+#: path's)
+CHAIN_CASES = ((N_CHAINS, 2 * L_MAIN * L_MAIN, "float32", True),
+               (3, 7, "float32", False),
+               (64, 2 * L_MAIN * L_MAIN, "float32", False),
+               (N_CHAINS * 1152, 1152, "float32", False),
+               (8, 2 * C5_L * C5_L, "float64", False),
+               (2, 16384, "float64", False),
+               (2, 16385, "float32", False),
+               (3, 16562, "float64", False),
+               (2, 40000, "float32", False))
 
 
 def chain_kernel_phases(dev, power: str) -> dict:
-    """K3 and K4 against their plain versions (the same halving tree: the
-    results must be bit-equal), each also on the first half of its batch
-    alone (the same bits as inside the batch), timed beside the plain
-    version and the one PyTorch call that computes the same function
-    (``torch.sum``; the complex ``matmul``), at every shape.  Inputs from a
-    generator of their own."""
+    """K3 against its plain version (the same halving tree: the results
+    must be bit-equal), also on the first half of its batch alone (the same
+    bits as inside the batch), timed beside the plain version and
+    ``torch.sum``, at every shape.  Inputs from a generator of their own."""
     from dwavehmc_tpu_torch.ops import kernels
 
     table = {}
     g = torch.Generator(device=dev).manual_seed(3)
-    for name, B, m, dtype, main in CHAIN_CASES:
+    for B, m, dtype, main in CHAIN_CASES:
         dt = getattr(torch, dtype)
-        if name == "chain_sum":
-            args = (torch.randn(B, m, generator=g, device=dev, dtype=dt),)
-            lib = lambda x: x.sum(-1)  # noqa: E731
-            nbytes, ops = dt.itemsize * (B * m + B), B * m
-        else:
-            args = tuple(torch.randn(*s, generator=g, device=dev, dtype=dt)
-                         for s in ((B, m, m), (B, m, m), (B, m), (B, m)))
-            A = torch.complex(args[0], args[1])
-            v = torch.complex(args[2], args[3])[..., None]
-            lib = lambda *_: torch.matmul(A, v)  # noqa: E731
-            nbytes, ops = dt.itemsize * (2 * B * m * m + 4 * B * m), \
-                8 * B * m * m
-        kernel = getattr(kernels, name)
-        plain = getattr(kernels, f"{name}_plain")
-        before = kernels.LAUNCHES[name]
-        got = kernel(*args)
+        x = torch.randn(B, m, generator=g, device=dev, dtype=dt)
+        before = kernels.LAUNCHES["chain_sum"]
+        got = kernels.chain_sum(x)
         torch.cuda.synchronize()
-        check(kernels.LAUNCHES[name] == before + 1,
-              f"{name} wrapper did not count its launch")
-        got = got if isinstance(got, tuple) else (got,)
-        want = plain(*args)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        bit_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        check(kernels.LAUNCHES["chain_sum"] == before + 1,
+              "chain_sum wrapper did not count its launch")
+        want = kernels.chain_sum_plain(x)
+        err = float((got - want).abs().max())
+        bit_equal = bool(torch.equal(got, want))
         k = max(1, B // 2)
-        alone = kernel(*(x[:k] for x in args))
-        alone = alone if isinstance(alone, tuple) else (alone,)
-        invariant = all(bool(torch.equal(a[:k], b))
-                        for a, b in zip(got, alone))
-        ms = cuda_ms(lambda: kernel(*args), 20, graph=True)
-        plain_ms = cuda_ms(lambda: plain(*args), 5 if main else 2,
-                           warmup=2 if main else 1)
-        library_ms = cuda_ms(lambda: lib(*args), 20, graph=True)
-        bound_ms, bound_by = roofline(nbytes, ops)
-        emit({"phase": f"kernel.{name}", "shape": [B, m], "dtype": dtype,
+        invariant = bool(torch.equal(got[:k], kernels.chain_sum(x[:k])))
+        ms = cuda_ms(lambda: kernels.chain_sum(x), 20, graph=True)
+        plain_ms = cuda_ms(lambda: kernels.chain_sum_plain(x),
+                           5 if main else 2, warmup=2 if main else 1)
+        library_ms = cuda_ms(lambda: x.sum(-1), 20, graph=True)
+        bound_ms, bound_by = roofline(dt.itemsize * (B * m + B), B * m)
+        emit({"phase": "kernel.chain_sum", "shape": [B, m], "dtype": dtype,
               "max_abs_err": err, "bit_equal_plain": bit_equal,
               "block_alone_bit_equal": invariant, "ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
-              "launches": kernels.LAUNCHES[name], "gpu": power})
+              "launches": kernels.LAUNCHES["chain_sum"], "gpu": power})
         if main:
-            table[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=library_ms)
-        check(bit_equal, f"{name} at {(B, m)} {dtype}: differs from its "
+            table["chain_sum"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by,
+                                      library_ms=library_ms)
+        check(bit_equal, f"chain_sum at {(B, m)} {dtype}: differs from its "
               f"plain version by {err}")
-        check(invariant, f"{name} at {(B, m)} {dtype}: a block alone gets "
-              "other bits than inside the batch")
-        del args, got, want, alone, lib
-        if name == "chain_matvec":
-            del A, v
+        check(invariant, f"chain_sum at {(B, m)} {dtype}: a block alone "
+              "gets other bits than inside the batch")
+        del x, got, want
     return table
 
 
@@ -614,25 +581,6 @@ SIGMA_CASES = ((8, 512, "float32", False),
 #: the card's L2 cache (H100 SXM): S that fits is read from device memory
 #: once, not once a pass
 L2_BYTES = 50 * 2**20
-
-
-def _old_sigma_cap(sr, si, iters: int = 3):
-    """The σ-cap as the tracked rotation ran it before K5: K4 and K3
-    launches between elementwise ops, v0's √n made on the host and copied
-    to the card."""
-    from dwavehmc_tpu_torch.ops import kernels
-
-    B, n = sr.shape[0], sr.shape[-1]
-    vr = torch.full((B, n), 1.0, dtype=sr.dtype, device=sr.device) / (
-        torch.sqrt(torch.tensor(float(n), dtype=sr.dtype)).to(sr.device))
-    vi = torch.zeros_like(vr)
-    for _ in range(iters):
-        wr, wi = kernels.chain_matvec(sr, si, vr, vi)
-        nrm = torch.sqrt(kernels.chain_sum(wr * wr + wi * wi))[:, None] \
-            + 1e-30
-        vr, vi = wr / nrm, wi / nrm
-    wr, wi = kernels.chain_matvec(sr, si, vr, vi)
-    return torch.sqrt(kernels.chain_sum(wr * wr + wi * wi))
 
 
 def _library_sigma_cap(S, iters: int = 3):
@@ -735,9 +683,8 @@ def sigma_cap_phase(dev, power: str) -> dict:
     """K5 against its plain version at ``SIGMA_CASES`` (bit-equal, also
     under every mode's plan and on a copy of S with −0.0 entries, and a
     block of the batch alone gets the batch's bits), timed (CUDA-graph
-    replay and eager) beside the σ-cap as the rotation called it before
-    (wall clock per call, its stream sync included), the plain version,
-    the library's iteration under graph replay, and two bounds: S read
+    replay, eager, and wall clock per call) beside the plain version, the
+    library's iteration under graph replay, and two bounds: S read
     once and four times (a pass each) at the card's memory rate.  Each
     plan's mode, registers, spills, shared memory and warps an SM come
     from the kernel's attributes and the residency query.  The kernels and
@@ -761,10 +708,8 @@ def sigma_cap_phase(dev, power: str) -> dict:
         check(kernels.LAUNCHES["sigma_cap"] == before + 1,
               "sigma_cap wrapper did not count its launch")
         want = kernels.spectral_norm_est_plain(sr, si)
-        old = _old_sigma_cap(sr, si)
         err = float((got - want).abs().max())
         bit_equal = bool(torch.equal(got, want))
-        old_equal = bool(torch.equal(old, want))
         k = max(1, B // 2)
         invariant = bool(torch.equal(
             kernels.spectral_norm_est(sr[:k], si[:k]), got[:k]))
@@ -780,7 +725,6 @@ def sigma_cap_phase(dev, power: str) -> dict:
                      graph=True)
         eager_ms = cuda_ms(lambda: kernels.spectral_norm_est(sr, si), 20)
         wall_ms = _wall_ms(lambda: kernels.spectral_norm_est(sr, si), 20)
-        old_wall_ms = _wall_ms(lambda: _old_sigma_cap(sr, si), 20)
         plain_ms = cuda_ms(lambda: kernels.spectral_norm_est_plain(sr, si),
                            2, warmup=1)
         S = torch.complex(sr, si)
@@ -798,7 +742,6 @@ def sigma_cap_phase(dev, power: str) -> dict:
         if main:
             launches = {"sigma_cap": _device_launches(
                 lambda: kernels.spectral_norm_est(sr, si)),
-                "old": _device_launches(lambda: _old_sigma_cap(sr, si)),
                 "library": _device_launches(
                     lambda: _library_sigma_cap(torch.complex(sr, si)))}
             table["sigma_cap"] = row
@@ -809,10 +752,9 @@ def sigma_cap_phase(dev, power: str) -> dict:
               "bit_equal_plain": bit_equal,
               "signed_zeros_bit_equal_plain": zeros_equal,
               "block_alone_bit_equal": invariant,
-              "old_sigma_cap_bit_equal_plain": old_equal,
               "library_max_abs_diff": lib_err, **row,
               "eager_ms": eager_ms, "wall_ms": wall_ms,
-              "old_wall_ms": old_wall_ms, "bound_four_reads_ms": four_ms,
+              "bound_four_reads_ms": four_ms,
               "s_fits_l2": s_bytes <= L2_BYTES,
               "device_ops_per_call": launches,
               "seconds_so_far": time.perf_counter() - t0,
@@ -826,9 +768,7 @@ def sigma_cap_phase(dev, power: str) -> dict:
               "other bits than inside the batch")
         check(zeros_equal, f"sigma_cap at {(B, n)} {dtype}: S with -0.0 "
               "entries differs from the plain version")
-        check(old_equal, f"sigma_cap at {(B, n)} {dtype}: the old σ-cap "
-              "differs from the plain version")
-        del sr, si, got, want, old
+        del sr, si, got, want
         torch.cuda.empty_cache()
     return table
 
@@ -3266,13 +3206,12 @@ def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
     B / W chains the same bits alone as inside the batch of B: the batched
     products (B, n, n)·(B, n, n) and (B, n, n)ᵀ·(B, n, n) (the rotations),
     the forces' row sums over (B, n/2, n), K3 ``chain_sum`` over (B, n)
-    (the energies), K5 ``spectral_norm_est`` (the σ-cap) and K4
-    ``chain_matvec`` (the σ-cap's product before K5),
-    and the embedding's ``eigh`` (the anchor, at (W, 2n, 2n), one chain
-    alone).  Also the two calls K3 and K4 replace: the per-chain
-    ``torch.sum`` over (B, n) and the batched matrix-vector product
-    (B, n, n)·(B, n, 1), whose launch cuBLAS and PyTorch's reduction kernels
-    choose by the batch's size."""
+    (the energies), K5 ``spectral_norm_est`` (the σ-cap) and the
+    embedding's ``eigh`` (the anchor, at (W, 2n, 2n), one chain alone).
+    Also the two calls K3 and K5 replace: the per-chain ``torch.sum`` over
+    (B, n) and the batched matrix-vector product (B, n, n)·(B, n, 1), whose
+    launch cuBLAS and PyTorch's reduction kernels choose by the batch's
+    size."""
     from dwavehmc_tpu_torch.models.bdg_real import symmetric_eigh
     from dwavehmc_tpu_torch.ops import kernels
 
@@ -3285,8 +3224,6 @@ def _batch_invariance(dev, dtype, B: int, n: int, W: int) -> dict:
              ("row_sum", lambda x, y: (x[:, :n // 2] * x[:, :n // 2])
               .sum(-1)),
              ("chain_sum", lambda x, y: kernels.chain_sum(y[..., 0])),
-             ("chain_matvec", lambda x, y: kernels.chain_matvec(
-                 x, x.mT.contiguous(), y[..., 0], -y[..., 0])[0]),
              ("sigma_cap", lambda x, y: kernels.spectral_norm_est(
                  x, x.mT.contiguous())),
              ("matvec", lambda x, y: x @ y),
@@ -3314,7 +3251,7 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
     the one-process batch of 8 the initial ensemble, the disorder and the
     decisions must be equal; the final Δ and dH are reported, beside
     whether the calls the sweep makes give a block the same bits alone as
-    in the batch (``_batch_invariance``; K3 and K4 must) and how far one
+    in the batch (``_batch_invariance``; K3 and K5 must) and how far one
     leapfrog of a block alone lands from the batch's.  Where every call of
     ``SWEEP_CALLS`` is batch-invariant in a dtype, every saved array must
     be bit-equal to one process (ROADMAP fault F6); the others are named
@@ -3384,8 +3321,8 @@ def config5_mesh_exec_phase(dev, power: str, W: int) -> dict:
                   f"config5.mesh_exec {name}: the ranks' {k} differs from "
                   "one process")
         probe = res[name]["batch_invariant"]
-        for call in ("chain_sum", "chain_matvec", "sigma_cap"):
-            check(probe[call], f"config5.mesh_exec {name}: K3/K4/K5 {call} "
+        for call in ("chain_sum", "sigma_cap"):
+            check(probe[call], f"config5.mesh_exec {name}: K3/K5 {call} "
                   "gives a block alone other bits than in the batch")
         # with every call of the sweep batch-invariant, the ranks must be
         # bit-equal to one process on every saved array (F6)
@@ -3733,9 +3670,9 @@ def tools_phases(dev, power: str) -> dict:
 
 
 
-#: the tracked path past K4's one-block tree (ROADMAP fault F7): 46×46, 2N =
-#: 4232, 2 chains at the production couplings at β = 10 (the bench's) and
-#: 20 (config 5's), Nt = 2, K = 2 (one cheap and one anchored sweep) with
+#: the tracked path at long rows (ROADMAP fault F7): 46×46, 2N = 4232, 2
+#: chains at the production couplings at β = 10 (the bench's) and 20
+#: (config 5's), Nt = 2, K = 2 (one cheap and one anchored sweep) with
 #: the PH anchor and exp2 rotations
 LARGE_L = 46
 LARGE = dict(chains=2, betas=(10.0, 20.0), Nt=2, sweeps=2, K=2)
@@ -3745,9 +3682,9 @@ def large_lattice_phase(dev, power: str) -> dict:
     """``init_ensemble_real`` (the guarded PH solve), a 2-sweep
     ``run_segment_tracked`` and one ``ensemble_transport_real`` pass at
     46×46 on the card, the counts reset before and read after: K1 on the
-    schedule, K2 twice, K3 launched, K5 once a rotation and no K4; every dH, observable, state and
-    transport output finite; the allocator's peak and the seconds
-    printed."""
+    schedule, K2 twice, K3 launched, K5 once a rotation; every dH,
+    observable, state and transport output finite; the allocator's peak
+    and the seconds printed."""
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
     from dwavehmc_tpu_torch.models.params import make_params
     from dwavehmc_tpu_torch.ops import ph_eigh
@@ -3806,7 +3743,6 @@ def large_lattice_phase(dev, power: str) -> dict:
     check(launches["sigma_cap"] == k1_want,
           f"large lattice: {launches['sigma_cap']} K5 launches, expected "
           f"one a rotation ({k1_want})")
-    check(launches["chain_matvec"] == 0, "large lattice: K4 launched")
     check(launches["chain_sum"] > 0, "large lattice: chain_sum not launched")
     check(bool(torch.isfinite(seg.dH).all()), f"large lattice: dH {seg.dH}")
     _finite(seg.observables, "large_lattice.observables")
@@ -3933,11 +3869,9 @@ def _cheap_timings(dev, L: int, B: int, reps: int) -> dict:
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
     from dwavehmc_tpu_torch.models.params import make_params
     from dwavehmc_tpu_torch.parallel import cheap_graph as cg
-    from dwavehmc_tpu_torch.parallel.ensemble import (
-        device_step,
-        init_ensemble_real,
-    )
+    from dwavehmc_tpu_torch.parallel.ensemble import init_ensemble_real
     from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+    from dwavehmc_tpu_torch.sampler.hmc_real import device_step
 
     lat = LatticeSpec(L, L)
     spec = cg.CheapSpec(6, *(FAST_TRACK[k] for k in cg.CheapSpec._fields[1:]))
@@ -3998,8 +3932,8 @@ def graph_cheap_sweep_phase(dev, power: str) -> dict:
     from dwavehmc_tpu_torch.models.lattice import LatticeSpec
     from dwavehmc_tpu_torch.models.params import make_params
     from dwavehmc_tpu_torch.parallel import cheap_graph as cg
-    from dwavehmc_tpu_torch.parallel.ensemble import device_step
     from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+    from dwavehmc_tpu_torch.sampler.hmc_real import device_step
 
     lat, B = LatticeSpec(16, 16), N_CHAINS
     run = _graph_periods(dev, lat, B)
@@ -4161,8 +4095,6 @@ def main(argv=None) -> int:
     for name in PATH_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    check(launches["chain_matvec"] == 0,
-          "the main path launched K4 (the σ-cap is K5's)")
     scan_launches, vec = scan_phases(dev, power)
     for name, n in scan_launches.items():
         check(n > 0 or name not in PATH_KERNELS,
@@ -4241,17 +4173,12 @@ def main(argv=None) -> int:
              replaces="dwavehmc_tpu/ops/pallas_kernels.py:86",
              launches=launches["weighted_lorentzian_sum"], library_ms=None,
              **table["weighted_lorentzian_sum"]),
-        # K3 and K4 replace no TPU kernel: they fix the order of XLA's
+        # K3 and K5 replace no TPU kernel: they fix the order of XLA's
         # per-chain reductions at these lines of the JAX package
         dict(name="chain_sum", route="cuda",
              source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
              replaces="dwavehmc_tpu/sampler/hmc_real.py:94",
              launches=launches["chain_sum"], **table["chain_sum"]),
-        # K4 has no caller on the path since K5 took the σ-cap
-        dict(name="chain_matvec", route="cuda",
-             source="dwavehmc_tpu_torch/csrc/chain_sum.cu",
-             replaces="dwavehmc_tpu/ops/tracked_eigh.py:57",
-             launches=launches["chain_matvec"], **table["chain_matvec"]),
         dict(name="sigma_cap", route="cuda",
              source="dwavehmc_tpu_torch/csrc/sigma_cap.cu",
              replaces="dwavehmc_tpu/ops/tracked_eigh.py:49-65",

@@ -1,4 +1,4 @@
-// The halving tree that K3, K4 (chain_sum.cu) and K5 (sigma_cap.cu) add in.
+// The halving tree that K3 (chain_sum.cu) and K5 (sigma_cap.cu) add in.
 //
 //   pad the row with zeros to P = max(256, next power of two >= m);
 //   for h = P/2, P/4, ..., 1:  x[i] = x[i] + x[i + h]  for i < h;

@@ -11,9 +11,7 @@ K2     ``weighted_lorentzian_sum`` ``csrc/lorentzian.cu``; replaces
 K3     ``chain_sum``               ``csrc/chain_sum.cu``; the per-chain sums
                                    of the HMC energies in a fixed order (no
                                    TPU kernel: XLA's ``jnp.sum``)
-K4     ``chain_matvec``            ``csrc/chain_sum.cu``; the complex
-                                   matrix-vector product in a fixed order (no
-                                   TPU kernel: XLA's ``matmul``)
+K4     retired                     no caller since K5 took the σ-cap's product
 K5     ``spectral_norm_est``       ``csrc/sigma_cap.cu``; the σ-cap's power
        (launches: ``sigma_cap``)   iteration in one launch (no TPU kernel:
                                    XLA's ``matmul`` and ``jnp.sum``)
@@ -23,15 +21,15 @@ K6     ``bdg_hop``                 ``csrc/bdg_hop.cu``; W = H·U through the
                                    ``matmul``, which multiplies H's zeros)
 =====  ==========================  ==========================================
 
-K3 and K4 exist so that a chain's sweep gives the same bits whatever batch
+K3 and K5 exist so that a chain's sweep gives the same bits whatever batch
 it runs in (ROADMAP fault F6): PyTorch's CUDA reduction and cuBLAS's
 batched matrix-vector product pick their order of addition by the batch's
-size.  Both add in one halving tree (``csrc/chain_sum.cu``), and their plain
-versions run the same tree, so kernel and plain version agree to the bit.
+size.  K3 adds in one halving tree (``csrc/chain_sum.cu``), and its plain
+version runs the same tree, so kernel and plain version agree to the bit.
 K5 runs the σ-cap of a tracked rotation (3 power iterations and a last
 product) in those trees in one launch, each tree folded past the levels
 that add only padding, and σ bit-equal to its plain version, the
-composition of K4's and K3's plain versions that the σ-cap ran before it
+composition of ``chain_matvec_plain`` and K3's plain version
 (``csrc/sigma_cap.cu``: why the fold keeps σ's bits; its float64 entries
 are ``sigma_cap_f64.cu``, the same file compiled for double).
 
@@ -80,7 +78,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
 LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0,
-            "chain_sum": 0, "chain_matvec": 0, "sigma_cap": 0,
+            "chain_sum": 0, "sigma_cap": 0,
             "bdg_hop": 0, "hu_dense": 0}
 
 _lib = None
@@ -169,9 +167,6 @@ def _load(path: Path):
     lib.dwh_weighted_lorentzian_sum.restype = i
     for name in ("dwh_chain_sum_f32", "dwh_chain_sum_f64"):
         getattr(lib, name).argtypes = [p, p, i, ctypes.c_longlong, p]
-        getattr(lib, name).restype = i
-    for name in ("dwh_chain_matvec_f32", "dwh_chain_matvec_f64"):
-        getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, p]
         getattr(lib, name).restype = i
     for name in ("dwh_sigma_cap_f32", "dwh_sigma_cap_f64"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
@@ -382,7 +377,7 @@ def weighted_lorentzian_sum(omega, de, w2, eta: float):
     return weighted_lorentzian_sum_cuda(f32(omega), f32(de), f32(w2), eta)
 
 
-# --- K3, K4: per-chain sums in a fixed order --------------------------------
+# --- K3: per-chain sums in a fixed order -------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -411,7 +406,7 @@ def chain_sum_plain(x):
 
 
 def _suffix(dtype: torch.dtype) -> str:
-    """The C entry's dtype suffix; K3 and K4 take float32 and float64."""
+    """The C entry's dtype suffix; K3 and K5 take float32 and float64."""
     if dtype not in _SUFFIX:
         raise TypeError(f"expected float32 or float64, got {dtype}")
     return _SUFFIX[dtype]
@@ -445,43 +440,12 @@ def chain_sum(x):
 
 
 def chain_matvec_plain(ar, ai, vr, vi):
-    """Plain PyTorch K4: w = (ar + i·ai)(vr + i·vi) for ar/ai (B, n, n) and
-    vr/vi (B, n), each of ar·vr, ai·vi, ar·vi, ai·vr its own halving tree:
-    (ar·vr − ai·vi, ar·vi + ai·vr), each (B, n)."""
+    """w = (ar + i·ai)(vr + i·vi) for ar/ai (B, n, n) and vr/vi (B, n), each
+    of ar·vr, ai·vi, ar·vi, ai·vr its own halving tree: (ar·vr − ai·vi,
+    ar·vi + ai·vr), each (B, n); the product of K5's plain version."""
     r, i = vr[:, None, :], vi[:, None, :]
     return (chain_sum_plain(ar * r) - chain_sum_plain(ai * i),
             chain_sum_plain(ar * i) + chain_sum_plain(ai * r))
-
-
-def chain_matvec_cuda(ar, ai, vr, vi):
-    """Launch K4 on float32 or float64 CUDA tensors ar/ai (B, n, n), vr/vi
-    (B, n), any n."""
-    B, n = vr.shape
-    dev, dt = vr.device, vr.dtype
-    suffix = _suffix(dt)
-    for name, t, shape in (("ar", ar, (B, n, n)), ("ai", ai, (B, n, n)),
-                           ("vr", vr, (B, n)), ("vi", vi, (B, n))):
-        _check(name, t, shape, dev, dt)
-    wr = torch.empty_like(vr)
-    wi = torch.empty_like(vi)
-    if B == 0 or n == 0:
-        return wr, wi
-    err = getattr(_library(), f"dwh_chain_matvec_{suffix}")(
-        ar.data_ptr(), ai.data_ptr(), vr.data_ptr(), vi.data_ptr(),
-        wr.data_ptr(), wi.data_ptr(), B, n, _stream(dev))
-    _raise_on(err, "chain_matvec")
-    LAUNCHES["chain_matvec"] += 1
-    return wr, wi
-
-
-def chain_matvec(ar, ai, vr, vi):
-    """K4 dispatch: the complex product (ar + i·ai)(vr + i·vi) per chain, in
-    one order whatever the batch.  CPU tensors → plain version; CUDA
-    tensors → the kernel in their dtype (float32 or float64)."""
-    if vr.device.type == "cpu":
-        return chain_matvec_plain(ar, ai, vr, vi)
-    c = lambda x: x.contiguous()  # noqa: E731
-    return chain_matvec_cuda(c(ar), c(ai), c(vr), c(vi))
 
 
 # --- K5: the σ-cap's power iteration in one launch ----------------------------

@@ -124,14 +124,18 @@ def _h_times(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
 
 
 def _project_T(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
-    """T = U†HU and diagnostics: (tr, ti, d, offdiag_inf per chain); H·U
-    through ``_h_times``."""
+    """T = U†HU: (tr, ti, d), d its diagonal; H·U through ``_h_times``."""
     wr, wi = _h_times(hr, hi, ur, ui, precision, hop)
     tr, ti = cmm_dag(ur, ui, wr, wi, precision)
-    d = torch.diagonal(tr, dim1=-2, dim2=-1)
-    mask = 1.0 - _eye(d.shape[-1], tr)
+    return tr, ti, torch.diagonal(tr, dim1=-2, dim2=-1)
+
+
+def offdiag_residual(tr, ti):
+    """max |T_ij| off the diagonal per chain, (B,): the JAX package's
+    fourth output of ``_project_T``, which only the readouts return."""
+    mask = 1.0 - _eye(tr.shape[-1], tr)
     off = torch.sqrt(tr * tr + ti * ti) * mask
-    return tr, ti, d, torch.amax(off, dim=(-2, -1))
+    return torch.amax(off, dim=(-2, -1))
 
 
 def rotation_matrix_parts(tr, ti, d, smax=S_MAX):
@@ -154,7 +158,7 @@ def tracked_step(hr, hi, ur, ui, precision=None, ns_steps=2, rot_dtype=None,
     if rot_dtype is not None:
         hr, hi = hr.to(rot_dtype), hi.to(rot_dtype)
         ur, ui = ur.to(rot_dtype), ui.to(rot_dtype)
-    tr, ti, d, _ = _project_T(hr, hi, ur, ui, precision, hop)
+    tr, ti, d = _project_T(hr, hi, ur, ui, precision, hop)
     if rot_dtype is not None:
         tr, ti = tr.to(torch.float32), ti.to(torch.float32)
         d = d.to(torch.float32)
@@ -221,7 +225,8 @@ def tracked_eigh_nofallback(hr, hi, ur0, ui0, *, n_iter: int = 6,
         ur, ui = ur.to(cdt), ui.to(cdt)
     readout = precision if eval_precision is None else eval_precision
     with matmul_precision(readout, ur0.device):
-        tr, ti, d, res = _project_T(hr, hi, ur, ui, readout, hop)
+        tr, ti, d = _project_T(hr, hi, ur, ui, readout, hop)
+    res = offdiag_residual(tr, ti)
     if eval_correction:
         d = rayleigh_corrected_evals(tr, ti, d)
     return d, ur, ui, res
@@ -262,7 +267,8 @@ def tracked_eigh(hr, hi, ur0, ui0, *, n_iter: int = 3, tol: float = 1e-4):
     ur, ui = ur0, ui0
     for _ in range(n_iter):
         ur, ui = tracked_step(hr, hi, ur, ui)
-    _, _, d, res = _project_T(hr, hi, ur, ui)
+    tr, ti, d = _project_T(hr, hi, ur, ui)
+    res = offdiag_residual(tr, ti)
 
     scale = torch.clamp(torch.amax(torch.abs(d), dim=-1), min=1e-30)
     bad = res > tol * scale

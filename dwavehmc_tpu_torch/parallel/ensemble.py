@@ -42,6 +42,7 @@ from ..sampler.hmc import SweepInfo, draw_momenta, hmc_sweep, init_chain_state
 from ..sampler.hmc_real import (
     HMCStateReal,
     _exact_diagonalize,
+    device_step,
     draw_init_state,
     hmc_sweep_real,
     init_chain_state_real,
@@ -49,7 +50,7 @@ from ..sampler.hmc_real import (
     tracked_accept,
     tracked_leapfrog,
 )
-from ..utils.profiling import span, spanned, sync_span
+from ..utils.profiling import span, spanned
 from .cheap_graph import CheapSpec, cheap_sweep
 
 
@@ -280,18 +281,6 @@ def tracked_accept_exact(lat: LatticeSpec, params: ModelParams,
     eig_new = _batch_eigs(proposal_embedding(lat, params, states, proposal),
                           exact_solver, vote)
     return tracked_accept(lat, params, states, proposal, eig_new=eig_new)
-
-
-def device_step(dt, like: torch.Tensor) -> torch.Tensor:
-    """The leapfrog step ``dt`` (a number, or per chain) as a tensor of
-    ``like``'s dtype on its device: a number is filled there, which the
-    host does not wait for; data on the host is copied, one host sync."""
-    if isinstance(dt, torch.Tensor) and dt.device == like.device:
-        return dt.to(like.dtype)
-    if isinstance(dt, (int, float)):
-        return torch.full((), float(dt), dtype=like.dtype, device=like.device)
-    with sync_span("leapfrog_dt"):
-        return torch.as_tensor(dt, dtype=like.dtype, device=like.device)
 
 
 def run_segment_tracked(lat: LatticeSpec, params: ModelParams,

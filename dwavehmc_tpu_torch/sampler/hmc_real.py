@@ -17,7 +17,6 @@ as inside any batch.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
@@ -198,6 +197,19 @@ def _refresh(params: ModelParams, state: HMCStateReal, normals, uniforms,
     return normals[:, 0] * scale, normals[:, 1] * scale, uniforms
 
 
+def device_step(dt, like: torch.Tensor) -> torch.Tensor:
+    """The leapfrog step ``dt`` (a number, or per chain) as a tensor of
+    ``like``'s dtype on its device: a number is filled there, which the
+    host does not wait for; data on the host is copied from pageable
+    memory, which waits for the stream, one host sync."""
+    if isinstance(dt, torch.Tensor) and dt.device == like.device:
+        return dt.to(like.dtype)
+    if isinstance(dt, (int, float)):
+        return torch.full((), float(dt), dtype=like.dtype, device=like.device)
+    with sync_span("leapfrog_dt"):
+        return torch.as_tensor(dt, dtype=like.dtype, device=like.device)
+
+
 @spanned("dwavehmc.leapfrog")
 def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
                      state: HMCStateReal, Nt: int, dt,
@@ -222,7 +234,6 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
     IEEE products by H go through K6 (``ops/tracked_eigh._h_times``).
     """
     beta, J, mass = params.beta, params.J, params.mass
-    rdt = state.evals.dtype
     dev = state.evals.device
     pi_re0, pi_im0, uniforms = _refresh(params, state, normals, uniforms,
                                         generator, "tracked_leapfrog")
@@ -230,11 +241,7 @@ def tracked_leapfrog(lat: LatticeSpec, params: ModelParams,
     Hs_real = static_hamiltonian(lat, params.t, params.tp, params.mu,
                                  state.disorder)
     hop = hop_table(lat, dev)
-    # a step from the host is copied from pageable memory: the copy waits
-    # for the stream, a host sync
-    on_dev = isinstance(dt, torch.Tensor) and dt.device == dev
-    with contextlib.nullcontext() if on_dev else sync_span("leapfrog_dt"):
-        dt = torch.as_tensor(dt, dtype=rdt, device=dev)
+    dt = device_step(dt, state.evals)
     dtv = chain_view(dt, 3)
     coef = chain_view(dt / (2.0 * mass), 3)
 
@@ -417,8 +424,6 @@ def hmc_sweep_real(lat: LatticeSpec, params: ModelParams,
         raise ValueError(f"eigh_mode={eigh_mode!r}: expected 'exact' or "
                          "'tracked'")
     beta, J, mass = params.beta, params.J, params.mass
-    rdt = state.evals.dtype
-    dev = state.evals.device
     pi_re0, pi_im0, u = _refresh(params, state, normals, uniforms, generator,
                                  "hmc_sweep_real")
 
@@ -430,7 +435,7 @@ def hmc_sweep_real(lat: LatticeSpec, params: ModelParams,
                                      state.disorder)
     M_static = static_embedding(lat, params.t, params.tp, params.mu,
                                 state.disorder)
-    dt = torch.as_tensor(dt, dtype=rdt, device=dev)
+    dt = device_step(dt, state.evals)
     dtv = chain_view(dt, 3)
     coef = chain_view(dt / (2.0 * mass), 3)
 

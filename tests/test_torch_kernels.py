@@ -118,14 +118,13 @@ def test_cpu_dispatch_never_counts_a_launch():
     omega, de, w2 = (torch.as_tensor(x) for x in _lor_inputs(3, 10, 1))
     kernels.weighted_lorentzian_sum(omega, de, w2, 0.1)
     kernels.chain_sum(tr)
-    kernels.chain_matvec(tr, ti, d, d)
     kernels.spectral_norm_est(tr, ti)
     hr, hi, ur, ui, table = _hop_inputs()
     kernels.bdg_hop(hr, hi, table, ur, ui)
     assert kernels.LAUNCHES == {"rotation_s_parts": 0,
                                 "weighted_lorentzian_sum": 0,
-                                "chain_sum": 0, "chain_matvec": 0,
-                                "sigma_cap": 0, "bdg_hop": 0,
+                                "chain_sum": 0, "sigma_cap": 0,
+                                "bdg_hop": 0,
                                 "hu_dense": 0}
 
 
@@ -138,8 +137,6 @@ def test_launchers_refuse_cpu_tensors():
         kernels.weighted_lorentzian_sum_cuda(omega, de, w2, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.chain_sum_cuda(d)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.chain_matvec_cuda(tr, ti, d, d)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.spectral_norm_est_cuda(tr, ti)
     hr, hi, ur, ui, table = _hop_inputs()

@@ -8,6 +8,8 @@ the CPU:
   ``torch.profiler``: the chrome trace's ``dwavehmc.*`` ranges equal
   ``SPANS`` in count and in summed duration (5 % or 2 ms), at the sites
   the sweep has; and the segment is bit-equal with and without a profiler;
+* a number step ``dt`` given to ``tracked_leapfrog`` or
+  ``run_segment_hostacc`` makes no ``leapfrog_dt`` host sync;
 * the benchmark's seven readers of them, on a hand-made context;
 * ``drivers/analyze_trace``: K3–K5 in ``FAMILIES`` as in the benchmark's
   frozen copy, and the device's time under each innermost range, matched
@@ -26,6 +28,7 @@ from dwavehmc_tpu_torch.drivers import analyze_trace as at
 from dwavehmc_tpu_torch.models.lattice import LatticeSpec
 from dwavehmc_tpu_torch.models.params import make_params
 from dwavehmc_tpu_torch.parallel import ensemble
+from dwavehmc_tpu_torch.sampler import hmc_real
 from dwavehmc_tpu_torch.utils import profiling
 from hmc_bench import harness
 from hmc_bench import trace as frozen
@@ -165,6 +168,40 @@ def test_segment_is_bit_equal_under_a_profiler(segments):
     for a, b in ((s0.delta_re, s1.delta_re), (s0.delta_im, s1.delta_im),
                  (s0.evals, s1.evals)):
         assert torch.equal(a, b)
+
+
+def _leapfrog_runs(runner, dt):
+    """One tracked leapfrog (or one host-readout sweep) of 2 chains at 4×4
+    with the step ``dt``, from the same ensemble and draws every call."""
+    lat = LatticeSpec(4, 4)
+    p = make_params(W=1.0, n_imp=0.05, beta=10.0, J=0.8, device="cpu")
+    s = ensemble.init_ensemble_real(lat, p, torch.Generator().manual_seed(3),
+                                    2, n_imp=0.05, exact_solver="ph",
+                                    device="cpu")
+    g = torch.Generator().manual_seed(4)
+    if runner == "tracked_leapfrog":
+        return tuple(hmc_real.tracked_leapfrog(lat, p, s, 2, dt, 2, 1, 1,
+                                               generator=g))
+    s, seg, _ = ensemble.run_segment_hostacc(lat, p, s, 1, 2, dt,
+                                             measure=False, tracked_iters=2,
+                                             exact_solver="ph", generator=g)
+    return tuple(s) + (seg.accepted, seg.dH)
+
+
+@pytest.mark.parametrize("runner", ["tracked_leapfrog",
+                                    "run_segment_hostacc"])
+def test_a_number_step_is_filled_on_the_device(runner):
+    """A Python number ``dt`` becomes a device tensor without a copy from
+    the host (``sampler/hmc_real.device_step``): no
+    ``dwavehmc.sync.leapfrog_dt`` under a profiler, and the bits of the
+    same step given as a device tensor."""
+    with _cpu_profile():
+        got = _leapfrog_runs(runner, 0.05)
+    assert profiling.SPANS["dwavehmc.leapfrog"][0] == 1
+    assert "dwavehmc.sync.leapfrog_dt" not in profiling.SPANS
+    want = _leapfrog_runs(runner, torch.tensor(0.05))
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 #: a hand-made registry: 10 traced sweeps of 8 chains (80 trajectories)

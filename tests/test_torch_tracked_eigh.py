@@ -64,7 +64,8 @@ def test_projection_norm_and_newton_schulz_match(problem):
     hr, hi, ur, ui = problem
     want = jax.vmap(jte._project_T)(*(jnp.asarray(x) for x in problem))
     got = tte._project_T(*(_t(x) for x in problem))
-    for g, w in zip(got, want):
+    assert len(got) == 3
+    for g, w in zip(got + (tte.offdiag_residual(*got[:2]),), want):
         np.testing.assert_allclose(_np(g), np.asarray(w), atol=1e-12)
     sr, si = jax.vmap(jte.rotation_matrix_parts)(*want[:3])
     np.testing.assert_allclose(
@@ -88,6 +89,37 @@ def test_tracked_step_matches(problem, scheme, ns_steps):
                            rot_scheme=scheme)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), np.asarray(w), atol=1e-10)
+
+
+def _refuse(*a, **k):
+    raise AssertionError("the residual was computed")
+
+
+def test_tracked_step_computes_no_residual(problem, monkeypatch):
+    """A rotation reads T and its diagonal only: max|T_ij| off the
+    diagonal is left to the readouts."""
+    monkeypatch.setattr(tte, "offdiag_residual", _refuse)
+    for scheme in ("ns", "exp2"):
+        tte.tracked_step(*(_t(x) for x in problem), rot_scheme=scheme)
+
+
+@pytest.mark.parametrize("solve", [tte.tracked_eigh_nofallback,
+                                   tte.tracked_eigh])
+def test_a_readout_computes_the_residual_once(problem, monkeypatch, solve):
+    """``tracked_eigh_nofallback`` and ``tracked_eigh`` take max|T_ij| once,
+    from their readout's T, however many rotations come before it."""
+    residual, calls = tte.offdiag_residual, []
+
+    def counted(tr, ti):
+        calls.append(tuple(tr.shape))
+        return residual(tr, ti)
+
+    monkeypatch.setattr(tte, "offdiag_residual", counted)
+    for n_iter in (0, 1, 3):
+        calls.clear()
+        res = solve(*(_t(x) for x in problem), n_iter=n_iter)
+        assert calls == [problem[0].shape], (n_iter, calls)
+        assert res[3].shape == problem[0].shape[:1]
 
 
 def _rho(d, ur, ui, beta=10.0):
