@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA device.  It
 
-1. builds the CUDA kernels (K1, K2, K3, K5, K6) from
+1. builds the CUDA kernels (K1, K2, K3, K5, K6, K7) from
    ``dwavehmc_tpu_torch/csrc`` with nvcc, one library;
 2. checks each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, at BASELINE config 5's (32×32: K1 at (2, 2048,
@@ -35,7 +35,14 @@ Run from the root of a checkout on a machine with one CUDA device.  It
    production shapes and two ragged ones, within 4e-6 of Σ|h||u| of the
    float64 product as its plain version is, timed beside its bound, the
    plain version and the dense 3-multiplication product
-   (``kernel.bdg_hop``);
+   (``kernel.bdg_hop``); then K7 ``herm_dag`` (``csrc/herm_dag.cu``, the
+   Hermitian A†B over the lower triangle's tiles) at the main path's, the
+   production, the bench's and the scan's shapes, a ragged n and config
+   5's, in both forms: within 1.5× the dense ``cmm_dag``'s error off the
+   float64 product, Hermitian to the bit, a chain alone bit-equal to
+   itself in the batch, timed beside the dense ``cmm_dag`` (GEMMs and
+   adds) and the float32 peak over the triangle's operations
+   (``kernel.herm_dag``);
    times K1 alone at the bench's three shapes;
 3. checks the guarded PH-split anchor at the main path's shape (8 × 2304,
    IEEE float32 products asserted): no fallback, eigenvalues against
@@ -363,6 +370,30 @@ def expected_hops(n_sweeps: int, K: int, nt: int = NT,
                               polish + 1)
 
 
+def expected_herm(n_sweeps: int, K: int, nt: int = NT,
+                  tracked: int = TRACK["tracked_iters"],
+                  refine: int = TRACK["refine_iters"],
+                  polish: int = TRACK["polish_iters"],
+                  ns_steps: int = TRACK["ns_steps"],
+                  rotations: bool = TRACK["rot_dtype"] is None) -> int:
+    """K7 launches of one segment of ``nt``-step sweeps: each step's
+    readout, and with float32 rotations (``rotations``) each tracked
+    rotation's projection and ``ns_steps`` Newton–Schulz steps; cheap
+    sweeps add the refine's and the polish's (at "highest") rotations, a
+    projection and two Newton–Schulz steps each, each phase with its
+    readout.  The fast mix (bf16 rotations, Nt 6, refine 6, polish 3): 35
+    a cheap sweep and 6 an anchored one."""
+    anchored = nt * (1 + (tracked * (1 + ns_steps) if rotations else 0))
+    cheap = (anchored + (3 * refine + 1 if refine else 0)
+             + (3 * polish + 1 if polish else 0))
+    total, done = 0, 0
+    while done < n_sweeps:
+        k = min(K, n_sweeps - done)
+        total += (k - 1) * cheap + anchored
+        done += k
+    return total
+
+
 # --- kernels ----------------------------------------------------------------
 
 #: K1 at ``drivers/bench.py``'s three shapes (16×16/b8, 24×24/b64,
@@ -503,7 +534,7 @@ def kernel_phases(dev, gen, power: str):
 
 #: the kernels the main path launches
 PATH_KERNELS = ("rotation_s_parts", "weighted_lorentzian_sum", "chain_sum",
-                "sigma_cap", "bdg_hop")
+                "sigma_cap", "bdg_hop", "herm_dag")
 #: K3 (``csrc/chain_sum.cu``) at the main path's shape first (the
 #: energies' sums over 2N = 1152 values of 8 chains), then unaligned,
 #: production-batch, config-5 float64 and the longest rows one block holds
@@ -857,6 +888,102 @@ def bdg_hop_phase(dev, power: str) -> dict:
     return table
 
 
+#: K7 (``csrc/herm_dag.cu``) at the main path's 24×24/b8, the production
+#: 24×24/b64, the bench's 16×16/b8, a ragged n = 50 and config 5's
+#: (2, 2048): (chains, n, is the production shape)
+HERM_CASES = ((N_CHAINS, 2 * L_MAIN * L_MAIN, False), (64, 1152, True),
+              (8, 512, False), (3, 50, False), (2, 2 * C5_L * C5_L, False))
+
+
+def _herm_inputs(dev, g, B: int, n: int):
+    """(ar, ai, br, bi) float32: a random U and W = H·U for a random
+    Hermitian H, so that A†B = U†HU is Hermitian."""
+    ur, ui, hr, hi = (torch.randn(B, n, n, generator=g, device=dev)
+                      for _ in range(4))
+    hr, hi = (hr + hr.mT) / 2, (hi - hi.mT) / 2
+    return ur, ui, hr @ ur - hi @ ui, hr @ ui + hi @ ur
+
+
+def _herm_rel(cr, ci, A, m: int) -> float:
+    """max over the first m chains' entries on and below the diagonal of
+    |c − c₆₄| / (|A|ᵀ|B|), c₆₄ the float64 product of the same operands."""
+    a = torch.complex(A[0][:m].double(), A[1][:m].double())
+    b = torch.complex(A[2][:m].double(), A[3][:m].double())
+    want = a.mH @ b
+    size = a.abs().mT @ b.abs()
+    lower = torch.ones(want.shape[-2:], dtype=torch.bool,
+                       device=want.device).tril()
+    return max(float(((c[:m].double() - w).abs() / size)[..., lower].max())
+               for c, w in ((cr, want.real), (ci, want.imag)))
+
+
+def herm_dag_phase(dev, power: str) -> dict:
+    """K7 at ``HERM_CASES`` in both forms (Karatsuba at ``None``, four
+    multiplications at "highest") against the float64 product (within 1.5×
+    the dense ``cmm_dag``'s error, over the first 4 chains), Hermitian to
+    the bit (ci's diagonal as computed), the last chain alone bit-equal to
+    itself in the batch, timed by CUDA-graph replay beside the dense
+    ``cmm_dag`` (its GEMMs and adds, graph replay), the plain version
+    (eager) and the float32 peak
+    over the triangle's P·n²(n + 1) fused operations a chain (P real
+    products), with the kernel's registers, spills and CTAs an SM.  Inputs
+    from a generator of their own."""
+    from dwavehmc_tpu_torch.ops import kernels
+    from dwavehmc_tpu_torch.ops.tracked_eigh import cmm_dag
+
+    table = {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for B, n, main in HERM_CASES:
+        A = _herm_inputs(dev, g, B, n)
+        for precision in (None, "highest"):
+            karatsuba = precision is None
+            before = kernels.LAUNCHES["herm_dag"]
+            cr, ci = kernels.herm_dag(*A, karatsuba)
+            torch.cuda.synchronize()
+            check(kernels.LAUNCHES["herm_dag"] == before + 1,
+                  "herm_dag wrapper did not count its launch")
+            m = min(B, 4)
+            rel = _herm_rel(cr, ci, A, m)
+            dense_rel = _herm_rel(*cmm_dag(*(x[:m] for x in A), precision),
+                                  A, m)
+            off = ci - torch.diag_embed(ci.diagonal(dim1=-2, dim2=-1))
+            hermitian = bool(torch.equal(cr, cr.mT)
+                             and torch.equal(off, -off.mT))
+            lone = kernels.herm_dag(*(x[-1:] for x in A), karatsuba)
+            alone = bool(torch.equal(lone[0][0], cr[-1])
+                         and torch.equal(lone[1][0], ci[-1]))
+            del cr, ci, off, lone
+            reps = 5 if B * n * n > 2 ** 26 else 20
+            ms = cuda_ms(lambda: kernels.herm_dag(*A, karatsuba), reps,
+                         graph=True)
+            library_ms = cuda_ms(lambda: cmm_dag(*A, precision), reps,
+                                 graph=True)
+            plain_ms = cuda_ms(lambda: kernels.herm_dag_plain(*A, karatsuba),
+                               3, warmup=1)
+            P = 3 if karatsuba else 4
+            bound_ms, bound_by = roofline(24.0 * B * n * n,
+                                          2.0 * P * B * n * n * (n + 1) / 2)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       max_rel_err=rel, dense_max_rel_err=dense_rel)
+            emit({"phase": "kernel.herm_dag", "shape": [B, n],
+                  "form": "karatsuba" if karatsuba else "four",
+                  "hermitian": hermitian, "chain_alone": alone,
+                  "bound_pct": 100.0 * bound_ms / ms, **row,
+                  "kernel": kernels.herm_dag_info(karatsuba),
+                  "launches": kernels.LAUNCHES["herm_dag"], "gpu": power})
+            if main and karatsuba:
+                table["herm_dag"] = row
+            check(rel <= 1.5 * dense_rel,
+                  f"herm_dag at {(B, n)}, {precision}: {rel} of |A|ᵀ|B| off "
+                  f"the float64 product, the dense product {dense_rel}")
+            check(hermitian, f"herm_dag at {(B, n)}: not Hermitian")
+            check(alone, f"herm_dag at {(B, n)}: a chain alone differs")
+        del A
+        torch.cuda.empty_cache()
+    return table
+
+
 def launch_geometry(n_w: int, M: int) -> dict:
     from dwavehmc_tpu_torch.ops import kernels
 
@@ -1020,12 +1147,14 @@ def main_path(dev, seed: int, power: str) -> dict:
         c1 = counts()
         k1 = c1["rotation_s_parts"] - c0["rotation_s_parts"]
         k6 = c1["bdg_hop"] - c0["bdg_hop"]
+        k7 = c1["herm_dag"] - c0["herm_dag"]
         emit({"phase": f"main.segment_K{K}", "sweeps": n_sweeps, "Nt": NT,
               "acceptance": seg.accepted.float().mean().item(),
               "accepted": seg.accepted.int().tolist(),
               "dH": seg.dH.tolist(), "seconds": sec,
               "traj_per_s": N_CHAINS * n_sweeps / sec,
-              "k1_launches": k1, "k6_launches": k6, "gpu": power})
+              "k1_launches": k1, "k6_launches": k6, "k7_launches": k7,
+              "gpu": power})
         check(k1 == expected_rotations(n_sweeps, K),
               f"K{K} segment: {k1} K1 launches, schedule implies "
               f"{expected_rotations(n_sweeps, K)}")
@@ -1035,6 +1164,12 @@ def main_path(dev, seed: int, power: str) -> dict:
         check(c1["hu_dense"] == c0["hu_dense"],
               f"K{K} segment: {c1['hu_dense'] - c0['hu_dense']} float32 "
               "IEEE products by H left dense")
+        check(k7 == expected_herm(n_sweeps, K),
+              f"K{K} segment: {k7} K7 launches, schedule implies "
+              f"{expected_herm(n_sweeps, K)}")
+        check(c1["herm_dense"] == c0["herm_dense"],
+              f"K{K} segment: {c1['herm_dense'] - c0['herm_dense']} float32 "
+              "IEEE Hermitian products left dense")
         check(c1["weighted_lorentzian_sum"] == c0["weighted_lorentzian_sum"],
               "a segment launched K2")
         _finite(seg.observables, f"segment_K{K}.observables")
@@ -4086,6 +4221,7 @@ def main(argv=None) -> int:
     table.update(chain_kernel_phases(dev, power))
     table.update(sigma_cap_phase(dev, power))
     table.update(bdg_hop_phase(dev, power))
+    table.update(herm_dag_phase(dev, power))
     anchor_phases(dev, gen, power)
     ph_draws_phase(dev, power)
     diverged_chain_phase(dev, power)
@@ -4188,6 +4324,12 @@ def main(argv=None) -> int:
              source="dwavehmc_tpu_torch/csrc/bdg_hop.cu",
              replaces="dwavehmc_tpu/ops/tracked_eigh.py:112",
              launches=launches["bdg_hop"], **table["bdg_hop"]),
+        # K7 replaces no TPU kernel: XLA's dense U†W and U†U compute the
+        # mirror half of a Hermitian output
+        dict(name="herm_dag", route="cuda",
+             source="dwavehmc_tpu_torch/csrc/herm_dag.cu",
+             replaces="dwavehmc_tpu/ops/tracked_eigh.py:88",
+             launches=launches["herm_dag"], **table["herm_dag"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(power, flush=True)

@@ -19,6 +19,11 @@ K6     ``bdg_hop``                 ``csrc/bdg_hop.cu``; W = H·U through the
                                    columns where a row of the BdG H can be
                                    nonzero (no TPU kernel: XLA's dense
                                    ``matmul``, which multiplies H's zeros)
+K7     ``herm_dag``                ``csrc/herm_dag.cu``; C = A†B where C is
+                                   Hermitian, over the lower triangle's
+                                   tiles, every real product and combine of
+                                   the complex form in one launch (no TPU
+                                   kernel: XLA's dense ``matmul``s and adds)
 =====  ==========================  ==========================================
 
 K3 and K5 exist so that a chain's sweep gives the same bits whatever batch
@@ -45,10 +50,13 @@ write each other's files.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises.  There is no fallback between the two.  Each
 kernel launch adds one to ``LAUNCHES[name]``; nothing else touches the count.
-One entry counts no kernel: ``LAUNCHES["hu_dense"]`` counts the float32
+Two entries count no kernel: ``LAUNCHES["hu_dense"]`` counts the float32
 IEEE products by H on the card that ``ops/tracked_eigh._project_T`` left to
 the dense product (its caller gave no K6 table), so that K6's launches over
-both are the share of those products K6 took.
+both are the share of those products K6 took; ``LAUNCHES["herm_dense"]``
+likewise counts the float32 IEEE Hermitian products A†B on the card that
+``ops/tracked_eigh._herm_dag`` left to the dense ``cmm_dag`` (operands that
+are not square matrices of one shape), beside K7's ``herm_dag``.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("rotation_s.cu", "lorentzian.cu", "chain_sum.cu", "sigma_cap.cu",
-           "sigma_cap_f64.cu", "bdg_hop.cu")
+           "sigma_cap_f64.cu", "bdg_hop.cu", "herm_dag.cu")
 #: headers the sources include (part of the build's key)
 HEADERS = ("halving_tree.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -79,7 +87,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel launches since the last ``reset_launches()``, by kernel name
 LAUNCHES = {"rotation_s_parts": 0, "weighted_lorentzian_sum": 0,
             "chain_sum": 0, "sigma_cap": 0,
-            "bdg_hop": 0, "hu_dense": 0}
+            "bdg_hop": 0, "hu_dense": 0, "herm_dag": 0, "herm_dense": 0}
 
 _lib = None
 
@@ -180,6 +188,10 @@ def _load(path: Path):
         getattr(lib, name).restype = i
     lib.dwh_bdg_hop.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.dwh_bdg_hop.restype = i
+    lib.dwh_herm_dag.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.dwh_herm_dag.restype = i
+    lib.dwh_herm_dag_attrs.argtypes = [i, p]
+    lib.dwh_herm_dag_attrs.restype = i
     return lib
 
 
@@ -805,3 +817,72 @@ def bdg_hop(hr, hi, table: HopTable, ur, ui):
         return bdg_hop_plain(hr, hi, table, ur, ui)
     c = lambda x: x.contiguous()  # noqa: E731
     return bdg_hop_cuda(c(hr), c(hi), table, c(ur), c(ui))
+
+
+# --- K7: the Hermitian product A†B over the lower triangle -------------------
+
+def herm_dag_plain(ar, ai, br, bi, karatsuba: bool = True):
+    """Plain PyTorch K7: C = (ar + i·ai)†(br + i·bi) for (…, n, n) tensors,
+    dense in ``ops/tracked_eigh.cmm_dag``'s forms (``karatsuba``: m1 = arᵀbr,
+    m2 = aiᵀbi, m3 = (ar − ai)ᵀ(br + bi), (m1 + m2, (m3 − m1) + m2); else
+    (arᵀbr + aiᵀbi, arᵀbi − aiᵀbr)), then each entry above the diagonal
+    replaced by its mirror's, cr[j, i] = cr[i, j] and ci[j, i] = −ci[i, j]:
+    Hermitian to the bit, the diagonal as computed."""
+    if karatsuba:
+        m1 = torch.matmul(ar.mT, br)
+        m2 = torch.matmul(ai.mT, bi)
+        m3 = torch.matmul((ar - ai).mT, br + bi)
+        cr, ci = m1 + m2, m3 - m1 + m2
+    else:
+        cr = torch.matmul(ar.mT, br) + torch.matmul(ai.mT, bi)
+        ci = torch.matmul(ar.mT, bi) - torch.matmul(ai.mT, br)
+    n = cr.shape[-1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=cr.device).tril()
+    return torch.where(lower, cr, cr.mT), torch.where(lower, ci, -ci.mT)
+
+
+def herm_dag_info(karatsuba: bool) -> dict:
+    """The card's figures for K7's kernel of one form: registers and
+    spilled bytes a thread, threads and shared memory a CTA, CTAs an SM."""
+    out = (ctypes.c_int * 5)()
+    err = _library().dwh_herm_dag_attrs(int(karatsuba), out)
+    _raise_on(err, "herm_dag attributes")
+    regs, spill, threads, smem, per_sm = out
+    return {"karatsuba": karatsuba, "registers": regs, "spill_bytes": spill,
+            "threads": threads, "smem_bytes": smem, "ctas_per_sm": per_sm}
+
+
+def herm_dag_cuda(ar, ai, br, bi, karatsuba: bool = True):
+    """Launch K7 on float32 CUDA tensors ar/ai/br/bi (…, n, n) of one
+    shape: (cr, ci) of that shape."""
+    shape = tuple(ar.shape)
+    if len(shape) < 2 or shape[-1] != shape[-2]:
+        raise ValueError(f"herm_dag: expected (..., n, n), got {shape}")
+    dev = ar.device
+    for name, t in (("ar", ar), ("ai", ai), ("br", br), ("bi", bi)):
+        _check(name, t, shape, dev)
+    cr = torch.empty_like(ar)
+    ci = torch.empty_like(ar)
+    n = shape[-1]
+    B = math.prod(shape[:-2])
+    if B == 0 or n == 0:
+        return cr, ci
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (ar, ai, br, bi, cr, ci))
+    err = _library().dwh_herm_dag(
+        ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(),
+        cr.data_ptr(), ci.data_ptr(), B, n, int(karatsuba), int(vec),
+        _stream(dev))
+    _raise_on(err, "herm_dag")
+    LAUNCHES["herm_dag"] += 1
+    return cr, ci
+
+
+def herm_dag(ar, ai, br, bi, karatsuba: bool = True):
+    """K7 dispatch: A†B for complex A = ar + i·ai and B = br + i·bi where
+    the caller knows it is Hermitian.  CPU tensors → plain version in
+    their dtype; CUDA tensors → the kernel (float32; any other raises)."""
+    if ar.device.type == "cpu":
+        return herm_dag_plain(ar, ai, br, bi, karatsuba)
+    c = lambda x: x.contiguous()  # noqa: E731
+    return herm_dag_cuda(c(ar), c(ai), c(br), c(bi), karatsuba)

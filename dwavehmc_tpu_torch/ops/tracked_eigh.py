@@ -26,7 +26,10 @@ The factor W = H·U of T = U†(HU) is one launch of K6
 (``ops/kernels.bdg_hop``), which reads H's own entries, where the caller
 passes H's table (``hop``, from ``hop_table``) and the product is a float32
 IEEE one (float32 operands at ``None`` or "highest"); the bf16 rotations
-and the TF32 precisions keep the dense product (``_h_times``).
+and the TF32 precisions keep the dense product (``_h_times``).  Under the
+same gate the Hermitian products T = U†W and Newton–Schulz's G = U†U are
+one launch of K7 (``ops/kernels.herm_dag``), over the lower triangle's
+tiles in ``cmm_dag``'s form (``_herm_dag``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from .kernels import (
     bdg_hop,
     bdg_hop_table,
     chain_sum,
+    herm_dag,
     rotation_s_parts,
     spectral_norm_est,
 )
@@ -91,9 +95,33 @@ def cmm_dag(ar, ai, br, bi, precision=None):
             mm(ar.mT, bi) - mm(ai.mT, br))
 
 
+def _ieee32(precision, *xs) -> bool:
+    """A float32 IEEE product: float32 operands at ``None`` or "highest"
+    (the card runs both without TF32, ``utils/precision.py``)."""
+    return (precision in (None, "highest")
+            and all(x.dtype == torch.float32 for x in xs))
+
+
+def _herm_dag(ar, ai, br, bi, precision=None):
+    """(a†·b) where the caller knows it is Hermitian.  A float32 IEEE
+    product of square matrices of one shape is K7 (``herm_dag``: the lower
+    triangle mirrored, ``cmm_dag``'s form at ``precision``); any other takes
+    ``cmm_dag``, and a float32 IEEE one on the card adds one to
+    ``LAUNCHES["herm_dense"]``."""
+    if not _ieee32(precision, ar, br):
+        return cmm_dag(ar, ai, br, bi, precision)
+    shape = ar.shape
+    if (shape[-1] == shape[-2]
+            and all(x.shape == shape for x in (ai, br, bi))):
+        return herm_dag(ar, ai, br, bi, karatsuba=precision is None)
+    if ar.is_cuda:
+        LAUNCHES["herm_dense"] += 1
+    return cmm_dag(ar, ai, br, bi, precision)
+
+
 def _newton_schulz(ur, ui, precision=None):
     """One step of U ← U(3I − U†U)/2 — re-unitarizes a near-unitary U."""
-    gr, gi = cmm_dag(ur, ui, ur, ui, precision)
+    gr, gi = _herm_dag(ur, ui, ur, ui, precision)
     mr = 1.5 * _eye(ur.shape[-1], ur) - 0.5 * gr
     mi = -0.5 * gi
     return cmm(ur, ui, mr, mi, precision)
@@ -114,8 +142,7 @@ def _h_times(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
     None or "highest") with H's table ``hop`` is K6; any other takes
     ``cmm``, and a float32 IEEE one on the card adds one to
     ``LAUNCHES["hu_dense"]``."""
-    ieee32 = (precision in (None, "highest")
-              and hr.dtype == ur.dtype == torch.float32)
+    ieee32 = _ieee32(precision, hr, ur)
     if ieee32 and hop is not None:
         return bdg_hop(hr, hi, hop, ur, ui)
     if ieee32 and ur.is_cuda:
@@ -124,9 +151,10 @@ def _h_times(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
 
 
 def _project_T(hr, hi, ur, ui, precision=None, hop: HopTable | None = None):
-    """T = U†HU: (tr, ti, d), d its diagonal; H·U through ``_h_times``."""
+    """T = U†HU: (tr, ti, d), d its diagonal; H·U through ``_h_times``,
+    U†W through ``_herm_dag`` (H is Hermitian, so T is)."""
     wr, wi = _h_times(hr, hi, ur, ui, precision, hop)
-    tr, ti = cmm_dag(ur, ui, wr, wi, precision)
+    tr, ti = _herm_dag(ur, ui, wr, wi, precision)
     return tr, ti, torch.diagonal(tr, dim1=-2, dim2=-1)
 
 

@@ -267,11 +267,13 @@ def test_first_therm_sweep_matches_the_jax_package(monkeypatch, L, chains,
     port's float64 sweep on the same inputs (the float32 state, params, dt
     and draws cast up; in float64 the two packages agree to 1e-8).  The
     port's float32 products by H are K6's sums over H's own entries
-    (``ops/kernels.bdg_hop``), which round otherwise than the JAX
-    package's dense product: the port's sweep with the dense product (the
-    leapfrog given no K6 table) is held to the JAX package's, and in
-    float32 the sweep with K6 is also held within ``atol`` of the float64
-    sweep, with the same decisions."""
+    (``ops/kernels.bdg_hop``) and its Hermitian products U†W and U†U are
+    K7's lower triangle mirrored (``ops/kernels.herm_dag``), which round
+    otherwise than the JAX package's dense products: the port's sweep with
+    the dense products (the leapfrog given no K6 table, and ``cmm_dag`` for
+    K7) is held to the JAX package's, and in float32 the sweep with K6 and
+    K7 is also held within ``atol`` of the float64 sweep, with the same
+    decisions."""
     import jax
     import jax.numpy as jnp
 
@@ -281,6 +283,7 @@ def test_first_therm_sweep_matches_the_jax_package(monkeypatch, L, chains,
     from dwavehmc_tpu_torch.parallel.ensemble import (
         init_ensemble_real, run_segment_tracked)
     from dwavehmc_tpu_torch.sampler.hmc import calc_optimal_dt
+    from dwavehmc_tpu_torch.ops import tracked_eigh
     from dwavehmc_tpu_torch.sampler import hmc_real
 
     torch.set_num_threads(2)
@@ -316,6 +319,7 @@ def test_first_therm_sweep_matches_the_jax_package(monkeypatch, L, chains,
     stencil = sweep()
     with monkeypatch.context() as m:
         m.setattr(hmc_real, "hop_table", lambda lat, device: None)
+        m.setattr(tracked_eigh, "_herm_dag", tracked_eigh.cmm_dag)
         seg = sweep()
     print(f"{L}x{L} {dtype} first therm sweep dH: port "
           f"{seg.dH.numpy().tolist()}, "
@@ -336,8 +340,8 @@ def test_first_therm_sweep_matches_the_jax_package(monkeypatch, L, chains,
         ref = ref.dH.numpy()
         print(f"{L}x{L} float64 on the float32 inputs dH: {ref.tolist()}; "
               f"float32 error: port {(seg.dH.numpy() - ref).tolist()}, "
-              f"port with K6 {(stencil.dH.numpy() - ref).tolist()}, JAX "
-              f"{(np.asarray(jseg.dH) - ref).tolist()}")
+              f"port with K6 and K7 {(stencil.dH.numpy() - ref).tolist()}, "
+              f"JAX {(np.asarray(jseg.dH) - ref).tolist()}")
         np.testing.assert_allclose(stencil.dH.numpy(), ref, atol=atol)
     else:
         np.testing.assert_array_equal(stencil.dH.numpy(), seg.dH.numpy())

@@ -852,4 +852,98 @@ def test_bdg_hop_in_a_cuda_graph(cuda):
     assert cheap_graph.COUNTS["replays"] == replays + K - 2
     assert kernels.LAUNCHES["bdg_hop"] == (K - 1) * 17 + 6
     assert kernels.LAUNCHES["hu_dense"] == 0
+    # and every float32 Hermitian product as K7 (35 a cheap sweep: 6
+    # readouts, refine 6 × 3 + 1, polish 3 × 3 + 1; 6 in the anchored one)
+    assert kernels.LAUNCHES["herm_dag"] == (K - 1) * 35 + 6
+    assert kernels.LAUNCHES["herm_dense"] == 0
     cheap_graph.reset_graphs()
+
+
+def _herm_case(B, n, device, gram, seed=0):
+    """(ar, ai, br, bi) float32 on ``device``: a random U and either U
+    itself (A†B = U†U) or W = H·U for a random Hermitian H (A†B = U†HU)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ur, ui = (torch.randn(B, n, n, generator=g, device=device)
+              for _ in range(2))
+    if gram:
+        return ur, ui, ur, ui
+    hr, hi = (torch.randn(B, n, n, generator=g, device=device)
+              for _ in range(2))
+    hr, hi = (hr + hr.mT) / 2, (hi - hi.mT) / 2
+    return ur, ui, hr @ ur - hi @ ui, hr @ ui + hi @ ur
+
+
+def _herm_err(cr, ci, A, m):
+    """max over the first m chains' entries on and below the diagonal (the
+    entries K7 computes) of |c − c₆₄| / (|A|ᵀ|B|), c₆₄ the float64 product
+    of the same float32 operands."""
+    a = torch.complex(A[0][:m].double(), A[1][:m].double())
+    b = torch.complex(A[2][:m].double(), A[3][:m].double())
+    want = a.mH @ b
+    size = a.abs().mT @ b.abs()
+    lower = torch.ones(want.shape[-2:], dtype=torch.bool,
+                       device=want.device).tril()
+    return max(float(((c[:m].double() - w).abs() / size)[..., lower].max())
+               for c, w in ((cr, want.real), (ci, want.imag)))
+
+
+@pytest.mark.parametrize("B,n", [(64, 1152), (8, 512), (8, 1152), (2, 2048),
+                                 (3, 50)])
+@pytest.mark.parametrize("precision", [None, "highest"])
+def test_herm_dag_kernel_against_float64(cuda, B, n, precision):
+    """K7 at the production (64, 1152), the bench's (8, 512), the scan's
+    (8, 1152), config 5's (2, 2048) and a ragged n = 50 (rows not 16-byte
+    aligned), in the form ``precision`` takes, for a Gram matrix and a
+    projection: one launch; within 1.5× the dense ``cmm_dag``'s error off
+    the float64 product (each sums n fused float32 terms per real
+    product); Hermitian to the bit (ci's diagonal as computed); the first
+    and the last chain alone bit-equal to themselves in the batch."""
+    from dwavehmc_tpu_torch.ops.tracked_eigh import cmm_dag
+
+    karatsuba = precision is None
+    for gram in (True, False):
+        A = _herm_case(B, n, cuda, gram, seed=n + gram)
+        before = kernels.LAUNCHES["herm_dag"]
+        cr, ci = kernels.herm_dag(*A, karatsuba)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["herm_dag"] == before + 1
+        m = min(B, 4)
+        err = _herm_err(cr, ci, A, m)
+        dense = _herm_err(*cmm_dag(*(x[:m] for x in A), precision), A, m)
+        assert err <= 1.5 * dense, (err, dense)
+        assert torch.equal(cr, cr.mT)
+        off = ci - torch.diag_embed(ci.diagonal(dim1=-2, dim2=-1))
+        assert torch.equal(off, -off.mT)
+        for b in (0, B - 1):
+            lr, li = kernels.herm_dag(*(x[b:b + 1] for x in A), karatsuba)
+            assert torch.equal(lr[0], cr[b]) and torch.equal(li[0], ci[b])
+        del A, cr, ci, off
+        torch.cuda.empty_cache()
+
+
+def test_herm_dag_in_a_cuda_graph(cuda):
+    """K7 captured alone, in both forms, replays the eager call's bits on
+    new inputs."""
+    A = _herm_case(8, 512, cuda, False, seed=3)
+    for karatsuba in (True, False):
+        inputs = [x.clone() for x in A]
+        kernels.herm_dag(*inputs, karatsuba)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kernels.herm_dag(*inputs, karatsuba)
+        for x, y in zip(inputs, A):
+            x.copy_(y.flip(0))
+        graph.replay()
+        want = kernels.herm_dag(*(x.flip(0) for x in A), karatsuba)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_herm_dag_launcher_checks_its_inputs(cuda):
+    x = torch.zeros(2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="n, n"):
+        kernels.herm_dag_cuda(*(torch.zeros(2, 8, 6, device=cuda),) * 4)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.herm_dag_cuda(x, x, x, torch.zeros(2, 6, 6, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.herm_dag_cuda(x, x, x, x.double())

@@ -121,11 +121,14 @@ def test_cpu_dispatch_never_counts_a_launch():
     kernels.spectral_norm_est(tr, ti)
     hr, hi, ur, ui, table = _hop_inputs()
     kernels.bdg_hop(hr, hi, table, ur, ui)
+    for karatsuba in (True, False):
+        kernels.herm_dag(ur, ui, ur, ui, karatsuba)
     assert kernels.LAUNCHES == {"rotation_s_parts": 0,
                                 "weighted_lorentzian_sum": 0,
                                 "chain_sum": 0, "sigma_cap": 0,
                                 "bdg_hop": 0,
-                                "hu_dense": 0}
+                                "hu_dense": 0, "herm_dag": 0,
+                                "herm_dense": 0}
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -142,6 +145,8 @@ def test_launchers_refuse_cpu_tensors():
     hr, hi, ur, ui, table = _hop_inputs()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.bdg_hop_cuda(hr, hi, table, ur, ui)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.herm_dag_cuda(ur, ui, ur, ui)
 
 
 def test_build_names_its_files_per_process(tmp_path, monkeypatch):
